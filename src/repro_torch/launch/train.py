@@ -1,0 +1,284 @@
+"""Training driver of the port: readiness-driven actor training.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --runtime actor \
+        --arch paper-gpt3-large --full-size --stages 4 --microbatches 8 \
+        --seq 2048 --steps 3
+
+Port of ``train_actor`` of ``repro.launch.train``: thread-per-stage actors
+(the copied ``runtime/rrfp`` driver) dispatch the real stage callables of
+``pipeline/stagefn.py`` by message arrival under hint-order arbitration,
+accumulate grads per stage, and AdamW runs over the accumulated grads.
+The stages share one device and its default CUDA stream: a payload is
+enqueued before it is sent, so stream order is data order (and stages do
+not overlap on the device).  Task times the driver records are host
+enqueue times; the step wall time, which ends in the loss's ``float()``
+sync, is the device-honest number.
+
+Runs on the GPU unless ``--device cpu`` is given; without CUDA it raises.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.core.costs import CostModel
+from repro_torch.core.hints import HintKind
+from repro_torch.core.taskgraph import PipelineSpec
+from repro_torch.data.synthetic import synth_batch
+from repro_torch.models.build import build
+from repro_torch.optim.adamw import AdamWConfig, make_host_update
+from repro_torch.pipeline.stagefn import (
+    ActorStageProgram,
+    StageFnOptions,
+    StageFns,
+)
+from repro_torch.runtime.rrfp import ActorConfig, ActorDriver, Trace, parse_chaos
+from repro_torch.runtime.straggler import StragglerMonitor
+
+SCHEDULES = ("gpipe", "1f1b", "zb", "rrfp")
+
+#: flags of the reference's launcher that later slices bring, with the
+#: ROADMAP.md queue-1 item that ports them
+DEFERRED_FLAGS = {
+    "recover": ("--recover", "Recovery"),
+    "hb_deadline": ("--hb-deadline", "Recovery"),
+    "adaptive": ("--adaptive", "Adaptive schedule loop"),
+    "resynth_every": ("--resynth-every", "Adaptive schedule loop"),
+    "swap_threshold": ("--swap-threshold", "Adaptive schedule loop"),
+    "metrics_report": ("--metrics-report", "Observability"),
+    "export_perfetto": ("--export-perfetto", "Observability"),
+    "explain": ("--explain", "Observability"),
+    "ckpt_dir": ("--ckpt-dir", "Checkpoints"),
+    "ckpt_every": ("--ckpt-every", "Checkpoints"),
+    "resume": ("--resume", "Checkpoints"),
+}
+
+
+@dataclasses.dataclass
+class TrainRun:
+    losses: list[float]
+    step_seconds: list[float]
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device to train on; CUDA must exist unless the CPU was asked for."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port runs on the GPU unless it is "
+            "asked for the CPU (--device cpu)")
+    return dev
+
+
+def _device_batch(arrays: dict, device) -> dict:
+    """numpy batch -> device tensors (token ids as int64 for indexing)."""
+    out = {}
+    for k, a in arrays.items():
+        t = torch.from_numpy(a)
+        if k in ("tokens", "labels"):
+            t = t.long()
+        out[k] = t.to(device)
+    return out
+
+
+def train_actor(args, *, init_params=None, step_hook=None) -> TrainRun:
+    """Train with thread-per-stage actors dispatching real stage callables.
+
+    Single process: stage s's parameters live with stage s's actor; AdamW
+    runs over the accumulated per-stage grads.  ``init_params(model,
+    device) -> (stage_modules, io_module)`` replaces the seeded init (the
+    parity tests load the reference's weights through it); ``step_hook(step)``
+    runs after each step (the profiler advances its schedule there).
+    """
+    device = resolve_device(args.device)
+    cfg = (registry.reduced_config(args.arch, num_layers=args.layers)
+           if not args.full_size else registry.get_arch(args.arch))
+    model = build(cfg, num_stages=args.stages)
+    if init_params is None:
+        stage_params = [model.init_stage_params(s, seed=0, device=device)
+                        for s in range(args.stages)]
+        io_params = model.init_io_params(seed=0, device=device)
+    else:
+        stage_params, io_params = init_params(model, device)
+    split = args.split_backward or args.schedule == "zb"
+    hint = HintKind(args.hint)
+    chaos = parse_chaos(args.chaos) if args.chaos else None
+    replay = None
+    if args.replay_trace:
+        if args.chaos:
+            raise SystemExit("--replay-trace replays the recorded arrival "
+                             "order; combining it with --chaos is undefined")
+        replay = Trace.load(args.replay_trace)
+        meta = replay.meta
+        for k, want in (("num_stages", args.stages),
+                        ("num_microbatches", args.microbatches),
+                        ("split_backward", split)):
+            if meta.get(k) is not None and meta[k] != want:
+                raise SystemExit(
+                    f"--replay-trace {args.replay_trace}: recorded {k}="
+                    f"{meta[k]} does not match this run's {want}")
+    spec = PipelineSpec(args.stages, args.microbatches, split_backward=split)
+    batch_size = args.microbatches * args.mb_rows
+    tokens = batch_size * args.seq
+    fns = StageFns(model, StageFnOptions(
+        mb_rows=args.mb_rows, seq_len=args.seq, loss_scale=1.0 / tokens))
+    if args.schedule == "rrfp":
+        mode, fixed = "hint", "1f1b"
+        if split != (hint == HintKind.BFW):
+            raise SystemExit(
+                "--hint bfw and --split-backward go together: the BFW hint "
+                "needs W tasks, which only exist under split backward (and "
+                "only the BFW hint dispatches them)")
+    elif args.schedule == "zb":
+        mode, fixed = "precommitted", "zb"
+    elif args.schedule in ("1f1b", "gpipe"):
+        if split:
+            raise SystemExit(
+                f"--split-backward is not defined for the fused-order "
+                f"{args.schedule!r} baseline; use --schedule zb")
+        mode, fixed = "precommitted", args.schedule
+    else:
+        raise SystemExit(
+            f"--runtime actor supports schedules rrfp/1f1b/gpipe/zb, "
+            f"not {args.schedule!r}")
+    acfg = ActorConfig(mode=mode, hint=hint, fixed_order=fixed,
+                       w_defer_cap=args.w_defer_cap,
+                       deadlock_timeout=args.deadlock_timeout,
+                       chaos=chaos, replay=replay)
+
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps),
+                          total_steps=max(args.steps, 1))
+    params = [p for sp in stage_params for p in sp.parameters()]
+    params += list(io_params.parameters())
+    mstate = [torch.zeros(p.shape, dtype=torch.float32, device=device)
+              for p in params]
+    vstate = [torch.zeros(p.shape, dtype=torch.float32, device=device)
+              for p in params]
+    apply_update = make_host_update(opt_cfg)
+
+    # The monitor re-synthesizes precommitted tables through the DES engine,
+    # whose baseline orders model a fused backward — feed it the fused twin.
+    monitor = StragglerMonitor(
+        spec=PipelineSpec(args.stages, args.microbatches),
+        costs=CostModel.uniform(args.stages))
+    print(f"arch={args.arch} N={cfg.param_count():,} params  runtime=actor "
+          f"mode={mode}  hint={hint.value}  split_backward={split}  "
+          f"stages={args.stages}  microbatches={args.microbatches}  "
+          f"device={device}")
+    run = TrainRun(losses=[], step_seconds=[])
+    for step in range(args.steps):
+        batch = _device_batch(
+            synth_batch(cfg, batch_size, args.seq, seed=args.seed, step=step),
+            device)
+        programs = [
+            ActorStageProgram(fns, s, stage_params[s], io_params, batch,
+                              split_backward=split)
+            for s in range(args.stages)
+        ]
+        t0 = time.perf_counter()
+        record_this = step == 0 and bool(args.record_trace)
+        driver = ActorDriver(
+            spec, None,
+            dataclasses.replace(acfg, record_trace=True) if record_this
+            else acfg)
+        result = driver.run_threaded(programs)
+        grads = [g for p in programs for g in p.d_stage]
+        d_io = list(programs[0].d_io)
+        for p in programs[1:]:
+            d_io = [a if b is None else b if a is None else a + b
+                    for a, b in zip(d_io, p.d_io)]
+        lr = apply_update(params, grads + d_io, mstate, vstate, step)
+        # one device sync per step: the programs keep the loss on device
+        loss = float(sum(p.loss_acc for p in programs)) / tokens
+        dt = time.perf_counter() - t0
+        run.losses.append(loss)
+        run.step_seconds.append(dt)
+        if record_this:
+            driver.trace.meta["step"] = step
+            driver.trace.meta["final_loss"] = loss
+            driver.trace.save(args.record_trace)
+            print(f"recorded step-0 trace ({len(driver.trace.events)} "
+                  f"events) -> {args.record_trace}")
+        bd = result.breakdown()
+        new_table = monitor.observe_result(result)
+        print(f"step {step:4d}  loss {loss:8.4f}  lr {lr:.2e}  "
+              f"{dt*1e3:7.1f} ms  makespan {result.makespan*1e3:7.1f} ms  "
+              f"blocking {bd['blocking']*1e3:6.1f} ms"
+              + ("  [replan]" if new_table is not None else ""))
+        if step_hook is not None:
+            step_hook(step)
+    if monitor.replans:
+        print(f"straggler monitor triggered {monitor.replans} replan(s)")
+    return run
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="readiness-driven actor training (PyTorch port)")
+    ap.add_argument("--arch", default="deepseek-7b",
+                    help="architecture id (registry.ARCHS)")
+    ap.add_argument("--runtime", default="actor", choices=("table", "actor"),
+                    help="actor: thread-per-stage readiness-driven runtime "
+                         "(the port's only runtime so far)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; the default needs CUDA")
+    ap.add_argument("--stages", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=8)
+    ap.add_argument("--mb-rows", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--schedule", default="rrfp", choices=SCHEDULES)
+    ap.add_argument("--hint", default="bf",
+                    choices=[h.value for h in HintKind],
+                    help="--schedule rrfp: hint order for ready-set "
+                         "arbitration (bfw needs --split-backward)")
+    ap.add_argument("--split-backward", action="store_true",
+                    help="BFW decomposition — B computes dX only, deferrable "
+                         "W tasks accumulate weight grads")
+    ap.add_argument("--w-defer-cap", type=int, default=4,
+                    help="split backward: max outstanding un-executed W "
+                         "tasks per stage (0 = unbounded)")
+    ap.add_argument("--deadlock-timeout", type=float, default=120.0,
+                    help="seconds of stage starvation before aborting with "
+                         "DeadlockError")
+    ap.add_argument("--chaos", default=None,
+                    help="fault-injection spec — a level (C0..C3) and/or "
+                         "key=value overrides, e.g. 'C2'")
+    ap.add_argument("--record-trace", default=None, metavar="PATH",
+                    help="record the step-0 event trace to PATH")
+    ap.add_argument("--replay-trace", default=None, metavar="PATH",
+                    help="re-execute the per-stage dispatch order recorded "
+                         "in PATH")
+    ap.add_argument("--full-size", action="store_true")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    # flags of the reference's launcher that later slices bring
+    for dest, (flag, _) in DEFERRED_FLAGS.items():
+        if dest in ("recover", "adaptive", "metrics_report", "explain",
+                    "resume"):
+            ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+        else:
+            ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    return ap
+
+
+def main(argv=None) -> TrainRun:
+    args = parser().parse_args(argv)
+    if args.runtime == "table":
+        raise SystemExit("--runtime table (the compiled schedule-table SPMD "
+                         "executor) moves with the multi-device slice "
+                         "(ROADMAP.md queue 1, 'Multi-device, last')")
+    for dest, (flag, item) in DEFERRED_FLAGS.items():
+        if getattr(args, dest) not in (None, False):
+            raise SystemExit(f"{flag} is not in the port yet: it moves with "
+                             f"ROADMAP.md queue 1, '{item}'")
+    return train_actor(args)
+
+
+if __name__ == "__main__":
+    main()
