@@ -10,11 +10,14 @@ forward kernels with an XLA backward.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 
-KERNELS = {"flash_attention_fwd": _fa.COUNTER, "rmsnorm": _rn.COUNTER}
+KERNELS = {"flash_attention_fwd": _fa.COUNTER, "rmsnorm": _rn.COUNTER,
+           "ssd_scan": _ssd.COUNTER}
 
 
 def launch_counts() -> dict[str, int]:
@@ -61,6 +64,48 @@ def flash_attention(q, k, v, positions=None, *, causal: bool = True,
     parity and not read.
     """
     return _FlashAttention.apply(q, k, v, causal, window)
+
+
+# ---------------------------------------------------------------------------
+# SSD (Mamba-2)
+# ---------------------------------------------------------------------------
+class _SSD(torch.autograd.Function):
+    """K4 forward; the backward differentiates the plain chunked version
+    (recompute), as the reference's ``_pallas_ssd_bwd`` takes the VJP of
+    ``_ssd_xla_chunked``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, chunk):
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        ctx.chunk = chunk
+        return _ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need
+                      in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            y = _ssd.ssd_chunked_plain(*leaves, chunk=ctx.chunk)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in leaves),
+                None)
+
+
+def ssd(x, dt, A, B, C, D, *, chunk: int = 128):
+    """x: [b, s, nh, hd]; dt: [b, s, nh]; A, D: [nh]; B, C: [b, s, ds].
+
+    Pads the length to a multiple of ``chunk`` (zeros: dt = 0 leaves the
+    state unchanged) and slices y back, as the reference's ``ops.ssd``.
+    """
+    s = x.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    return _SSD.apply(x, dt, A, B, C, D, chunk)[:, :s]
 
 
 # ---------------------------------------------------------------------------

@@ -3,14 +3,15 @@
     python -m repro_torch.launch.profile [--out PATH] [train flags]
 
 Runs :func:`repro_torch.launch.train.train_actor` for three steps (default
-flags: the main path of ``chip_smoke.py``: paper-gpt3-large full size, 4
-stages, 8 microbatches of 1 x 2048 tokens, hint bf) and traces the third
-with CUDA activity.  Prints the step's wall time, the device's busy time
-(union of kernel intervals; every stage shares the default stream) and
-idle share, the time per kernel category and the heaviest kernels, and
-writes the same as JSON to ``--out``.  Needs a GPU; the profiler's own
-host overhead lengthens the traced step, so the breakdown is of device
-time and the untraced step times are the wall-time record.
+flags: the first main path of ``chip_smoke.py``: paper-gpt3-large full
+size, 4 stages, 8 microbatches of 1 x 2048 tokens, hint bf; give train
+flags, e.g. ``--arch zamba2-1.2b --full-size ...``, for another) and traces
+the third with CUDA activity.  Prints the step's wall time, the device's
+busy time (union of kernel intervals; every stage shares the default
+stream) and idle share, the time per kernel category and the heaviest
+kernels, and writes the same as JSON to ``--out``.  Needs a GPU; the
+profiler's own host overhead lengthens the traced step, so the breakdown
+is of device time and the untraced step times are the wall-time record.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ DEFAULT_ARGS = ["--arch", "paper-gpt3-large", "--full-size", "--stages", "4",
 CATEGORIES = (
     ("K1 flash_attention_fwd", ("flash_fwd_kernel",)),
     ("K2 rmsnorm", ("_rmsnorm_kernel",)),
+    ("K4 ssd_scan", ("ssd_scan_kernel",)),
     ("matmul float32 (no tensor cores)", ("f32f32", "sgemm")),
     ("matmul (tensor cores)", ("nvjet", "gemm", "xmma", "cutlass",
                                "Kernel2", "sm90_")),

@@ -8,20 +8,28 @@ Parameters are ``nn.Module``s: one :class:`StageParams` per stage and one
 stacked pytree, e.g. ``slots.{i}.blk.attn.wq`` of stage ``s`` is
 ``stage_params['blk']['attn']['wq'][s, i]`` (see ``models/convert.py``).
 
-This slice runs the attention layer kinds (``attn``, ``attn_local``,
-``attn_global``); the others raise ``NotImplementedError`` naming the
-ROADMAP slice they move with.
+The port runs the attention layer kinds (``attn``, ``attn_local``,
+``attn_global``), Mamba-2 layers (``mamba``) and zamba2's shared attention
+block (``io.shared_blk``, applied before every ``shared_attn_period``-th
+layer); the other kinds raise ``NotImplementedError`` naming the ROADMAP
+slice they move with.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import ArchConfig, global_layer_index, stage_layout
+from repro_torch.models.common import (
+    ArchConfig,
+    ShapeCell,
+    global_layer_index,
+    stage_layout,
+)
 from repro_torch.models.layers import (
     DecoderLayer,
     dense_param,
@@ -29,6 +37,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     zeros_param,
 )
+from repro_torch.models.ssm import MambaLayer, mamba_layer
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
 #: layer kind -> the ROADMAP queue-1 slice that ports it
@@ -37,7 +46,6 @@ LATER_SLICES = {
     "dec": "other families (seamless enc-dec)",
     "moe": "other families (MoE)",
     "dense": "other families (MoE)",
-    "mamba": "SSM slice (zamba2)",
     "mlstm": "other families (xLSTM)",
     "slstm": "other families (xLSTM)",
 }
@@ -56,14 +64,19 @@ def make_generator(seed: int, salt: int, device) -> torch.Generator:
 
 
 class LayerSlot(nn.Module):
-    """Union parameters of one layer slot (this slice: the decoder block)."""
+    """Union parameters of one layer slot over the arch's layer kinds (the
+    reference's ``init_layer_params``): ``blk`` for the attention kinds,
+    ``mamba`` for Mamba-2."""
 
     def __init__(self, cfg: ArchConfig, layer_types, gen, device):
         super().__init__()
         for kind in layer_types:
-            if kind not in ATTN_KINDS:
+            if kind in LATER_SLICES:
                 raise _not_ported(f"layer kind {kind!r}", LATER_SLICES[kind])
-        self.blk = DecoderLayer(cfg, gen, device)
+        if set(layer_types) & set(ATTN_KINDS):
+            self.blk = DecoderLayer(cfg, gen, device)
+        if "mamba" in layer_types:
+            self.mamba = MambaLayer(cfg, gen, device)
 
 
 class StageParams(nn.Module):
@@ -77,7 +90,8 @@ class StageParams(nn.Module):
 
 
 class IOParams(nn.Module):
-    """Embedding, LM head and final norm (outside the stage stacking)."""
+    """Embedding, LM head, final norm and, for zamba2, the shared attention
+    block (outside the stage stacking)."""
 
     def __init__(self, cfg: ArchConfig, gen, device):
         super().__init__()
@@ -86,6 +100,8 @@ class IOParams(nn.Module):
                                  scale=0.02)
         self.head = dense_param(gen, (v, cfg.d_model), cfg.dtype, device)
         self.final_ln = zeros_param((cfg.d_model,), cfg.dtype, device)
+        if cfg.shared_attn_period:
+            self.shared_blk = DecoderLayer(cfg, gen, device)
 
 
 @dataclasses.dataclass
@@ -108,14 +124,8 @@ class ArchModel:
     # ------------------------------------------------------------------
     # params (``seed=None`` allocates without initialising, for loading)
     # ------------------------------------------------------------------
-    def _check_ported(self) -> None:
-        if self.cfg.shared_attn_period:
-            raise _not_ported("the shared attention block", "SSM slice (zamba2)")
-
     def init_stage_params(self, stage: int, *, seed: int | None = 0,
                           device="cuda") -> StageParams:
-        self._check_ported()
-
         def gen_for_slot(i):
             if seed is None:
                 return None
@@ -125,7 +135,6 @@ class ArchModel:
 
     def init_io_params(self, *, seed: int | None = 0,
                        device="cuda") -> IOParams:
-        self._check_ported()
         gen = None if seed is None else make_generator(seed, 1_000_000, device)
         return IOParams(self.cfg, gen, device)
 
@@ -134,6 +143,8 @@ class ArchModel:
     # ------------------------------------------------------------------
     def _branch(self, kind: str):
         cfg = self.cfg
+        if kind == "mamba":
+            return lambda slot, io, x, aux: mamba_layer(slot.mamba, x, cfg)
         if kind == "attn":
             window = cfg.sliding_window
         elif kind == "attn_local":
@@ -155,18 +166,26 @@ class ArchModel:
 
         Under autograd each slot is checkpointed (``remat``): the backward
         keeps one activation per slot and recomputes the slot's internals,
-        the reference's ``jax.checkpoint`` per slot.
+        the reference's ``jax.checkpoint`` per slot.  A slot flagged
+        ``shared`` applies ``io.shared_blk`` before its own layer, inside
+        the same checkpoint.
         """
         for i, slot in enumerate(stage_params.slots):
             if not rows["enabled"][i]:
                 continue
             fn = self._branch(self.layer_types[int(rows["type_id"][i])])
+            if self.cfg.shared_attn_period and rows["shared"][i]:
+                fn = functools.partial(self._shared_then, fn)
             if remat and torch.is_grad_enabled():
                 x = checkpoint(fn, slot, io, x, aux, use_reentrant=False,
                                preserve_rng_state=False)
             else:
                 x = fn(slot, io, x, aux)
         return x
+
+    def _shared_then(self, fn, slot, io: IOParams, x, aux):
+        x = decoder_layer(io.shared_blk, x, aux["positions"], self.cfg)
+        return fn(slot, io, x, aux)
 
     # ------------------------------------------------------------------
     # embedding / head
@@ -187,6 +206,47 @@ class ArchModel:
         for s in range(self.num_stages):
             x = self.stage_forward(stage_params[s], io, x, aux, self.rows(s))
         return self.head_logits(io, x)
+
+
+    # ------------------------------------------------------------------
+    # analytic accounting
+    # ------------------------------------------------------------------
+    def model_flops(self, cell: ShapeCell) -> dict[str, float]:
+        """MODEL_FLOPS = 6·N·D (dense) / 6·N_active·D (MoE), N excl. embed,
+        plus the attention context FLOPs (not in 6ND) of every attention
+        layer and shared-block application."""
+        cfg = self.cfg
+        tokens = (cell.seq_len * cell.global_batch if cell.step == "train"
+                  else cell.global_batch)
+        n_active = cfg.active_param_count() + cfg.padded_vocab() * cfg.d_model
+        n_total = (cfg.param_count(include_embed=False)
+                   + cfg.padded_vocab() * cfg.d_model)
+        mult = 6 if cell.step == "train" else 2
+        attn_layers = sum(
+            1 for k in cfg.pattern
+            if k in ("attn", "attn_global", "moe", "dense", "dec", "enc")
+        ) + (int(np.count_nonzero(self.shared_flags))
+             if cfg.shared_attn_period else 0)
+        local_layers = sum(1 for k in cfg.pattern if k == "attn_local")
+        hq, hd = cfg.num_heads, cfg.resolved_head_dim
+        local_ctx = cfg.sliding_window or 1024
+        if cell.step == "train":
+            ctx = cell.seq_len / 2
+            attn_flops = mult * cell.global_batch * cell.seq_len * (
+                attn_layers * ctx + local_layers * min(local_ctx, ctx)
+            ) * 2 * hq * hd
+        else:
+            ctx = cell.seq_len
+            attn_flops = mult * cell.global_batch * (
+                attn_layers * ctx + local_layers * min(local_ctx, ctx)
+            ) * 2 * hq * hd
+        return {
+            "model_flops": mult * n_active * tokens + attn_flops,
+            "model_flops_total_params": mult * n_total * tokens + attn_flops,
+            "tokens": tokens,
+            "n_active": n_active,
+            "n_total": n_total,
+        }
 
 
 def build(cfg: ArchConfig, num_stages: int = 16) -> ArchModel:

@@ -4,11 +4,16 @@ The reference keeps parameters as nested dicts of arrays: stage parameters
 stacked ``[num_stages, l_max, ...]`` per leaf, IO parameters unstacked.
 The port's module names map onto those paths one-to-one:
 
-    stage s, ``slots.{i}.blk.attn.wq``  <->  ``stage['blk']['attn']['wq'][s, i]``
-    ``embed``                          <->  ``io['embed']``
+    stage s, ``slots.{i}.blk.attn.wq``    <->  ``stage['blk']['attn']['wq'][s, i]``
+    stage s, ``slots.{i}.mamba.in_proj``  <->  ``stage['mamba']['in_proj'][s, i]``
+    ``embed``                            <->  ``io['embed']``
+    ``shared_blk.attn.wq``               <->  ``io['shared_blk']['attn']['wq']``
 
 so both frameworks can compute on identical weights.  Arrays arrive as
-numpy (bfloat16 arrays as numpy's ``bfloat16`` extension dtype).
+numpy (bfloat16 arrays as numpy's ``bfloat16`` extension dtype).  A leaf
+whose dtype differs from the port parameter's raises instead of being cast
+(the float32 leaves of a bfloat16 model, e.g. a Mamba layer's ``a_log``,
+must stay float32 on both sides).
 """
 from __future__ import annotations
 
@@ -32,6 +37,15 @@ def _leaf(tree: dict, dotted: str):
     return node
 
 
+def _load(p: torch.Tensor, a, name: str, device) -> None:
+    t = tensor_from_numpy(a, device)
+    if t.dtype != p.dtype or t.shape != p.shape:
+        raise TypeError(f"{name}: reference leaf {t.dtype} {tuple(t.shape)} "
+                        f"does not match the port's {p.dtype} "
+                        f"{tuple(p.shape)}")
+    p.copy_(t)
+
+
 def params_from_reference(model: ArchModel, stage_params_np: dict,
                           io_params_np: dict, device
                           ) -> tuple[list[StageParams], IOParams]:
@@ -43,12 +57,10 @@ def params_from_reference(model: ArchModel, stage_params_np: dict,
             sp = model.init_stage_params(s, seed=None, device=device)
             for name, p in sp.named_parameters():
                 _, slot, path = name.split(".", 2)  # "slots", i, rest
-                p.copy_(tensor_from_numpy(
-                    np.asarray(_leaf(stage_params_np, path))[s, int(slot)],
-                    device))
+                _load(p, np.asarray(_leaf(stage_params_np, path))[s, int(slot)],
+                      f"stage {s} {name}", device)
             stages.append(sp)
         io = model.init_io_params(seed=None, device=device)
         for name, p in io.named_parameters():
-            p.copy_(tensor_from_numpy(np.asarray(_leaf(io_params_np, name)),
-                                      device))
+            _load(p, np.asarray(_leaf(io_params_np, name)), name, device)
     return stages, io

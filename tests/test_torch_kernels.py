@@ -157,7 +157,11 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     ops.rmsnorm(x, torch.zeros(64))
     q = torch.randn(1, 16, 2, 32)
     ops.flash_attention(q, q, q)
-    assert ops.launch_counts() == {"flash_attention_fwd": 0, "rmsnorm": 0}
+    x = torch.randn(1, 40, 2, 16)
+    ops.ssd(x, torch.rand(1, 40, 2), -torch.rand(2), torch.randn(1, 40, 8),
+            torch.randn(1, 40, 8), torch.ones(2), chunk=16)
+    assert ops.launch_counts() == {"flash_attention_fwd": 0, "rmsnorm": 0,
+                                   "ssd_scan": 0}
 
 
 def test_wrappers_reject_devices_without_a_kernel():
@@ -167,6 +171,11 @@ def test_wrappers_reject_devices_without_a_kernel():
     q = torch.randn(1, 2, 16, 32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         fa.flash_attention_fwd(q, q, q)
+    x, bc, h = (torch.randn(shape, device="meta") for shape in
+                ((1, 32, 2, 16), (1, 32, 8), (2,)))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.ssd(x, torch.randn(1, 32, 2, device="meta"), h, bc, bc, h,
+                chunk=16)
 
 
 @pytest.mark.cuda
@@ -190,4 +199,4 @@ def test_kernels_match_plain_versions_on_card(dtype):
     close(rn.rmsnorm(x, s).cpu(), rn.rmsnorm_plain(x, s).cpu().float().numpy(),
           TOL[dtype])
     assert ops.launch_counts() == {"flash_attention_fwd": len(SHAPES),
-                                   "rmsnorm": 1}
+                                   "rmsnorm": 1, "ssd_scan": 0}

@@ -62,9 +62,9 @@ def test_unported_layer_kinds_name_their_slice():
     model = tbuild(registry.reduced_config("deepseek-moe-16b"), 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.init_stage_params(0, device="cpu")
-    model = tbuild(registry.reduced_config("zamba2-1.2b"), 2)
-    with pytest.raises(NotImplementedError, match="SSM slice"):
-        model.init_io_params(device="cpu")
+    model = tbuild(registry.reduced_config("xlstm-350m"), 2)
+    with pytest.raises(NotImplementedError, match="xLSTM"):
+        model.init_stage_params(0, device="cpu")
 
 
 def test_rope_matches_reference():
@@ -80,8 +80,19 @@ def test_rope_matches_reference():
                           jlayers.rope_freqs(16, 1e4))
 
 
+def reduced_configs(arch, layers_n):
+    """(reference, port) reduced configs; zamba2 keeps its Mamba pattern
+    (the registries' reduced config has only attention layers for it)."""
+    cfgs = (jreg.reduced_config(arch, num_layers=layers_n),
+            registry.reduced_config(arch, num_layers=layers_n))
+    if arch == "zamba2-1.2b":
+        cfgs = tuple(dataclasses.replace(c, layer_pattern=("mamba",) * layers_n)
+                     for c in cfgs)
+    return cfgs
+
+
 def _reference_model(arch, stages, layers_n=4):
-    cfg = jreg.reduced_config(arch, num_layers=layers_n)
+    cfg = reduced_configs(arch, layers_n)[0]
     model = jbuild(cfg, num_stages=stages)
     key = jax.random.key(0)
     sp = model.init_stage_params(key)
@@ -118,14 +129,18 @@ def test_decoder_layer_matches_reference(act):
 
 
 @pytest.mark.parametrize("arch", ["paper-gpt3-large", "deepseek-7b",
-                                  "qwen1.5-32b", "granite-34b", "gemma3-4b"])
+                                  "qwen1.5-32b", "granite-34b", "gemma3-4b",
+                                  "zamba2-1.2b"])
 def test_reference_forward_logits_match(arch):
-    model_j, sp, io = _reference_model(arch, stages=2)
-    model_t = tbuild(registry.reduced_config(arch, num_layers=4), 2)
+    # zamba2: 5 Mamba layers on 2 stages (a disabled slot, shared-block
+    # slots on both stages); seq 40 = two full chunks of 16 and a padded one
+    layers_n, s = (5, 40) if arch == "zamba2-1.2b" else (4, 16)
+    model_j, sp, io = _reference_model(arch, stages=2, layers_n=layers_n)
+    model_t = tbuild(reduced_configs(arch, layers_n)[1], 2)
     stages, io_t = params_from_reference(model_t, _np_tree(sp), _np_tree(io),
                                          "cpu")
     rng = np.random.default_rng(2)
-    b, s = 2, 16
+    b = 2
     tokens = rng.integers(0, model_j.cfg.vocab_size, (b, s)).astype(np.int32)
     pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
     want = model_j.reference_forward(sp, io, {"tokens": jnp.asarray(tokens)},

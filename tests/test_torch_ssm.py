@@ -1,0 +1,291 @@
+"""Port K4 (SSD scan), the Mamba-2 layer and zamba2's accounting against the
+reference.
+
+On the CPU the port's ``ops.ssd`` runs the kernel's plain version (the
+reference's ``_ssd_xla_chunked``, step by step); the reference runs its
+Pallas kernel in interpret mode, its XLA chunked path and its sequential
+oracle.  Inputs come from numpy seeds and go to both.  Tolerances: the SSD
+forward uses tests/test_kernels.py's (atol 5e-4 / rtol 1e-5 in float32,
+6e-2 / 3e-2 in bfloat16, whose contractions round operands to bfloat16);
+the sequential oracles agree within 1e-5; gradients within 1e-4, relative
+to each gradient's largest entry (float32 sums in another order, with
+cancellation in A's and D's); the Mamba layer within 1e-5.  The CUDA
+kernel itself runs only on the card (marker ``cuda``).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jreg
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import ssm as jssm
+from repro.models.build import build as jbuild
+from repro.models.common import SHAPES as JSHAPES
+from repro_torch.configs import registry
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.models import ssm
+from repro_torch.models.build import build
+from repro_torch.models.common import SHAPES
+from repro_torch.models.convert import params_from_reference
+
+#: tests/test_kernels.py shapes: (b, s, nh, hd, ds, chunk)
+SHAPES_SSD = [
+    (2, 256, 4, 32, 16, 64),
+    (1, 128, 8, 64, 64, 128),  # zamba2-like state size
+    (1, 192, 2, 16, 8, 64),    # non-power-of-two length
+    (2, 100, 2, 16, 8, 64),    # needs padding
+]
+TOL = {"float32": (5e-4, 1e-5), "bfloat16": (6e-2, 3e-2)}
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def ssd_inputs(b, s, nh, hd, ds, seed):
+    """tests/test_kernels.py's inputs: dt > 0 small, A < 0."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.standard_normal((b, s, nh, hd)).astype(f),
+            np.abs(rng.standard_normal((b, s, nh))).astype(f) * f(0.1),
+            -np.abs(rng.standard_normal(nh)).astype(f),
+            rng.standard_normal((b, s, ds)).astype(f),
+            rng.standard_normal((b, s, ds)).astype(f),
+            rng.standard_normal(nh).astype(f))
+
+
+def close(got, want, atol, rtol):
+    np.testing.assert_allclose(
+        got.detach().float().numpy() if isinstance(got, torch.Tensor)
+        else np.asarray(got, np.float32),
+        np.asarray(want, np.float32), atol=atol, rtol=rtol)
+
+
+def mamba_config(reg, layers: int, dtype=None):
+    """Reduced zamba2 with its Mamba pattern: the registry's reduced config
+    (the reference's) keeps only attention layers for the hybrid family."""
+    cfg = dataclasses.replace(reg.reduced_config("zamba2-1.2b", layers),
+                              layer_pattern=("mamba",) * layers)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# (a) ops.ssd against the reference's three implementations
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,nh,hd,ds,chunk", SHAPES_SSD)
+def test_ssd_matches_reference_backends(b, s, nh, hd, ds, chunk, dtype):
+    x, dt, A, B, C, D = ssd_inputs(b, s, nh, hd, ds,
+                                   seed=b * 1000 + s * 10 + nh)
+    jd, td = DTYPES[dtype]
+    xj = jnp.asarray(x, jd)
+    rest_j = [jnp.asarray(a) for a in (dt, A, B, C, D)]
+    got = ops.ssd(torch.from_numpy(x).to(td),
+                  *map(torch.from_numpy, (dt, A, B, C, D)), chunk=chunk)
+    assert got.shape == (b, s, nh, hd) and got.dtype == td
+    atol, rtol = TOL[dtype]
+    for backend in ("interpret", "xla"):
+        want = jops.ssd(xj, *rest_j, chunk=chunk, backend=backend)
+        close(got, want, atol, rtol)
+    close(got, jref.ssd_ref(xj, *rest_j), atol, rtol)
+
+
+# ---------------------------------------------------------------------------
+# (b) the sequential oracle
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,s,nh,hd,ds,chunk", SHAPES_SSD)
+def test_ssd_ref_matches_reference_oracle(b, s, nh, hd, ds, chunk):
+    args = ssd_inputs(b, s, nh, hd, ds, seed=s)
+    got = ref.ssd_ref(*map(torch.from_numpy, args))
+    close(got, jref.ssd_ref(*map(jnp.asarray, args)), 1e-5, 1e-5)
+    y, h = ref.ssd_ref_with_state(*map(torch.from_numpy, args))
+    yj, hj = jref.ssd_ref_with_state(*map(jnp.asarray, args))
+    close(y, yj, 1e-5, 1e-5)
+    close(h, hj, 1e-5, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# (c) gradients: the autograd Function's plain backward against jax.grad
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,s,nh,hd,ds,chunk", SHAPES_SSD)
+def test_ssd_grad_matches_jax_grad(b, s, nh, hd, ds, chunk):
+    args = ssd_inputs(b, s, nh, hd, ds, seed=s + 1)
+    cot = np.random.default_rng(s).standard_normal(
+        (b, s, nh, hd)).astype(np.float32)
+
+    def f(*a):
+        return jnp.sum(jops.ssd(*a, chunk=chunk, backend="interpret") * cot)
+
+    want = jax.grad(f, argnums=tuple(range(6)))(*map(jnp.asarray, args))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    y = ops.ssd(*leaves, chunk=chunk)
+    got = torch.autograd.grad((y * torch.from_numpy(cot)).sum(), leaves)
+    for g, w in zip(got, want):
+        # A's and D's gradients sum b*s*hd terms that cancel: the absolute
+        # tolerance is 1e-4 of each gradient's largest entry
+        close(g, w, 1e-4 * max(1.0, float(np.abs(w).max())), 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# (d) chunk invariance (tests/test_kernels.py's property)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("s,nh,chunk,seed", [
+    (8, 1, 32, 0), (37, 2, 32, 1), (64, 4, 64, 2), (130, 2, 32, 3),
+    (200, 4, 64, 4), (100, 1, 64, 5)])
+def test_ssd_chunk_invariance(s, nh, chunk, seed):
+    args = [torch.from_numpy(a) for a in ssd_inputs(1, s, nh, 16, 8, seed)]
+    a = ops.ssd(*args, chunk=chunk)
+    b_ = ops.ssd(*args, chunk=16)
+    close(a, b_.numpy(), 5e-4, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# (e) the Mamba-2 layer
+# ---------------------------------------------------------------------------
+def _mamba_params(seed=4):
+    cfg_j = mamba_config(jreg, 2)
+    cfg_t = mamba_config(registry, 2)
+    p = jbuild(cfg_j, num_stages=1).init_layer_params(
+        jax.random.key(seed))["mamba"]
+    # perturb the zero/one-initialised leaves so every path is exercised
+    rng = np.random.default_rng(seed)
+    p = {k: np.asarray(v) + (rng.standard_normal(v.shape).astype(v.dtype)
+                             * np.float32(0.1)
+                             if k in ("ln", "conv_b", "a_log", "dt_bias",
+                                      "d_skip", "gate_ln") else 0)
+         for k, v in p.items()}
+    port = ssm.MambaLayer(cfg_t, None, "cpu")
+    with torch.no_grad():
+        for name, t in port.named_parameters():
+            assert t.dtype == torch.from_numpy(p[name]).dtype, name
+            t.copy_(torch.from_numpy(p[name]))
+    return cfg_j, cfg_t, p, port
+
+
+def test_causal_conv_matches_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 24, 40)).astype(np.float32)
+    w = rng.standard_normal((4, 40)).astype(np.float32)
+    b = rng.standard_normal(40).astype(np.float32)
+    got = ssm._causal_conv(*map(torch.from_numpy, (x, w, b)))
+    close(got, jssm._causal_conv(*map(jnp.asarray, (x, w, b))), 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("s", [32, 40])
+def test_mamba_layer_matches_reference(s):
+    cfg_j, cfg_t, p, port = _mamba_params()
+    x = np.random.default_rng(s).standard_normal(
+        (2, s, cfg_t.d_model)).astype(np.float32)
+    want = jssm.mamba_layer({k: jnp.asarray(v) for k, v in p.items()},
+                            jnp.asarray(x), cfg_j)
+    with torch.no_grad():
+        got = ssm.mamba_layer(port, torch.from_numpy(x), cfg_t)
+    close(got, want, 1e-5, 1e-5)
+
+
+def test_softplus_is_jax_softplus_beyond_twenty():
+    x = np.array([-30.0, -1.0, 0.0, 3.0, 19.5, 20.5, 40.0], np.float32)
+    close(ssm._softplus(torch.from_numpy(x)),
+          jax.nn.softplus(jnp.asarray(x)), 1e-6, 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# (i) bfloat16 models keep their float32 leaves; mismatches raise
+# ---------------------------------------------------------------------------
+def _reference_tree(cfg_j, stages):
+    model_j = jbuild(cfg_j, num_stages=stages)
+    key = jax.random.key(0)
+    sp = jax.tree.map(np.asarray, model_j.init_stage_params(key))
+    io = jax.tree.map(np.asarray,
+                      model_j.init_io_params(jax.random.fold_in(key, 1)))
+    return sp, io
+
+
+def test_params_from_reference_keeps_float32_leaves_of_bf16_zamba2():
+    sp, io = _reference_tree(mamba_config(jreg, 3, jnp.bfloat16), 2)
+    model = build(mamba_config(registry, 3, torch.bfloat16), 2)
+    stages, io_t = params_from_reference(model, sp, io, "cpu")
+    layer = stages[0].slots[0].mamba
+    for name in ("a_log", "dt_bias", "d_skip"):
+        assert getattr(layer, name).dtype == torch.float32, name
+    assert layer.in_proj.dtype == torch.bfloat16
+    assert io_t.shared_blk.attn.wq.dtype == torch.bfloat16
+    assert torch.equal(io_t.shared_blk.attn.wq.float(), torch.from_numpy(
+        np.asarray(io["shared_blk"]["attn"]["wq"], np.float32)))
+    assert torch.equal(stages[1].slots[0].mamba.in_proj.float(),
+                       torch.from_numpy(np.asarray(
+                           sp["mamba"]["in_proj"][1, 0], np.float32)))
+
+
+def test_params_from_reference_rejects_a_dtype_mismatch():
+    sp, io = _reference_tree(mamba_config(jreg, 3, jnp.bfloat16), 2)
+    model = build(mamba_config(registry, 3), 2)  # float32 port
+    with pytest.raises(TypeError, match="does not match"):
+        params_from_reference(model, sp, io, "cpu")
+    sp["mamba"]["a_log"] = sp["mamba"]["a_log"].astype(jnp.bfloat16)
+    model = build(mamba_config(registry, 3, torch.bfloat16), 2)
+    with pytest.raises(TypeError, match="a_log"):
+        params_from_reference(model, sp, io, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# (j) model FLOPs, for every arch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", jreg.ARCHS)
+def test_model_flops_match_reference(arch):
+    for stages in (4, 5):
+        want = jbuild(jreg.get_arch(arch), stages).model_flops(
+            JSHAPES["train_4k"])
+        got = build(registry.get_arch(arch), stages).model_flops(
+            SHAPES["train_4k"])
+        assert got == want
+
+
+def test_zamba2_layout_and_parameter_count():
+    cfg = registry.get_arch("zamba2-1.2b")
+    model = build(cfg, 4)
+    assert model.counts.tolist() == [10, 10, 9, 9]
+    assert int(model.shared_flags.sum()) == 7
+    assert cfg.param_count() == 1_170_313_344
+
+
+# ---------------------------------------------------------------------------
+# wrappers and (k) the kernel on the card
+# ---------------------------------------------------------------------------
+def test_ssd_wrapper_counts_nothing_on_the_cpu_and_rejects_other_devices():
+    ops.reset_launch_counts()
+    args = [torch.from_numpy(a) for a in ssd_inputs(1, 64, 2, 16, 8, 0)]
+    ops.ssd(*args, chunk=32)
+    assert ops.launch_counts()["ssd_scan"] == 0
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ssd.ssd_scan(*meta, chunk=32)
+
+
+def test_kernel_shared_memory_plan_fits_every_checked_shape():
+    for _, _, _, hd, ds, chunk in SHAPES_SSD + [(1, 2048, 64, 64, 64, 64)]:
+        p = ssd.hd_slice(hd)
+        assert ssd.smem_bytes(chunk, p, ds) <= ssd.MAX_SMEM
+        assert hd % p == 0 and chunk % 4 == 0 and p % 4 == 0 and ds % 4 == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain_version_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode "
+                    "(chip_smoke.py runs it on the card)")
+    td = DTYPES[dtype][1]
+    atol, rtol = TOL[dtype]
+    ops.reset_launch_counts()
+    for b, s, nh, hd, ds, chunk in SHAPES_SSD:
+        x, dt, A, B, C, D = (torch.from_numpy(a).cuda() for a in
+                             ssd_inputs(b, s, nh, hd, ds, seed=s))
+        got = ops.ssd(x.to(td), dt, A, B, C, D, chunk=chunk)
+        want = ssd.ssd_chunked_plain(x.to(td).float(), dt, A, B, C, D, chunk)
+        close(got.cpu(), want.cpu().numpy(), atol, rtol)
+    assert ops.launch_counts()["ssd_scan"] == len(SHAPES_SSD)

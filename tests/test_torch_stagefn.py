@@ -6,8 +6,11 @@
 * Inside the port, bit for bit (mirroring tests/test_split_backward.py and
   tests/conformance/test_real_model.py): the BFW split backward equals the
   fused one, and a chaotic threaded run equals a fixed-order run under
-  ``deterministic_reduction``.
+  ``deterministic_reduction`` — for the dense decoder and for zamba2 (Mamba
+  layers and the shared attention block, whose gradients are IO gradients).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,15 +61,28 @@ def _leaf(tree, dotted):
     return tree
 
 
-@pytest.mark.parametrize("arch", ["paper-gpt3-large", "deepseek-7b"])
+def reduced(reg, arch, layers):
+    """The registry's reduced config; zamba2 keeps its Mamba pattern (the
+    reduced config of the hybrid family has only attention layers)."""
+    cfg = reg.reduced_config(arch, num_layers=layers)
+    if arch == "zamba2-1.2b":
+        cfg = dataclasses.replace(cfg, layer_pattern=("mamba",) * layers)
+    return cfg
+
+
+@pytest.mark.parametrize("arch", ["paper-gpt3-large", "deepseek-7b",
+                                  "zamba2-1.2b"])
 def test_stage_fns_match_reference(arch):
-    S, mb_rows, seq = 2, 2, 16
-    cfg_j = jreg.reduced_config(arch, num_layers=4)
+    # zamba2: 5 Mamba layers (a disabled slot; the shared block on both
+    # stages, its gradient in d_io); seq 40 = 2 chunks of 16 + a padded one
+    layers, seq = (5, 40) if arch == "zamba2-1.2b" else (4, 16)
+    S, mb_rows = 2, 2
+    cfg_j = reduced(jreg, arch, layers)
     model_j = jbuild(cfg_j, num_stages=S)
     key = jax.random.key(0)
     sp = model_j.init_stage_params(key)
     io = model_j.init_io_params(jax.random.fold_in(key, 1))
-    model_t = build(registry.reduced_config(arch, num_layers=4), S)
+    model_t = build(reduced(registry, arch, layers), S)
     stages, io_t = params_from_reference(
         model_t, jax.tree.map(np.asarray, sp), jax.tree.map(np.asarray, io),
         "cpu")
@@ -113,7 +129,7 @@ def test_stage_fns_match_reference(arch):
 # bit-for-bit properties inside the port
 # ---------------------------------------------------------------------------
 def _port_setup(S, M, mb_rows, seq, layers, arch="deepseek-7b"):
-    cfg = registry.reduced_config(arch, num_layers=layers)
+    cfg = reduced(registry, arch, layers)
     model = build(cfg, num_stages=S)
     stages = [model.init_stage_params(s, seed=0, device="cpu")
               for s in range(S)]
@@ -130,9 +146,9 @@ def _same(a, b):
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_split_backward_matches_fused_bitwise():
-    S, mb_rows, seq = 2, 2, 16
-    fns, stages, io, batch = _port_setup(S, 1, mb_rows, seq, 4)
+def _check_split_backward_matches_fused(arch, layers, seq):
+    S, mb_rows = 2, 2
+    fns, stages, io, batch = _port_setup(S, 1, mb_rows, seq, layers, arch)
     bm = microbatch(batch, 0, mb_rows)
     y0, _ = fns.forward(0)(stages[0], io, None, bm)
     g = torch.from_numpy(np.random.default_rng(1).standard_normal(
@@ -144,6 +160,15 @@ def test_split_backward_matches_fused_bitwise():
             assert _same(dx_f, fns.backward_dx(s)(stages[s], io, x, g_in, bm))
         assert all(_same(a, b) for a, b in zip(dsp_f, dsp_s))
         assert all(_same(a, b) for a, b in zip(dio_f, dio_s))
+
+
+def test_split_backward_matches_fused_bitwise():
+    _check_split_backward_matches_fused("deepseek-7b", 4, 16)
+
+
+def test_zamba2_split_backward_matches_fused_bitwise():
+    """Mamba layers, the shared block's IO gradients and a padded chunk."""
+    _check_split_backward_matches_fused("zamba2-1.2b", 5, 24)
 
 
 def test_threaded_bfw_matches_fused_run():
@@ -192,10 +217,10 @@ def reference_execute(spec, programs):
             done.add(t)
 
 
-@pytest.mark.parametrize("split", [False, True], ids=["fused", "bfw"])
-def test_chaotic_run_matches_fixed_order_bitwise(split):
+def _check_chaotic_run_matches_fixed_order(split, arch="deepseek-7b",
+                                           layers=None):
     if split:
-        S, M, mb_rows, seq, layers = 2, 4, 2, 16, 4
+        S, M, mb_rows, seq, layers = 2, 4, 2, 16, layers or 4
         chaos = ChaosConfig(seed=2, latency_base=2e-3, reorder_prob=0.5,
                             reorder_window=2e-2, duplicate_prob=0.3,
                             straggler=((0, 2.0),), stall_prob=0.15,
@@ -203,13 +228,13 @@ def test_chaotic_run_matches_fixed_order_bitwise(split):
         acfg = ActorConfig(mode="hint", hint=HintKind.BFW, w_defer_cap=2,
                            chaos=chaos, deadlock_timeout=300.0)
     else:
-        S, M, mb_rows, seq, layers = 2, 3, 1, 8, 2
+        S, M, mb_rows, seq, layers = 2, 3, 1, 8, layers or 2
         chaos = ChaosConfig(seed=1, latency_base=2e-3, reorder_prob=0.4,
                             reorder_window=1e-2, duplicate_prob=0.2,
                             straggler=((1, 2.0),), stall_prob=0.1,
                             stall_scale=5e-3)
         acfg = ActorConfig(mode="hint", chaos=chaos, deadlock_timeout=300.0)
-    fns, stages, io, batch = _port_setup(S, M, mb_rows, seq, layers)
+    fns, stages, io, batch = _port_setup(S, M, mb_rows, seq, layers, arch)
     spec = PipelineSpec(S, M, split_backward=split)
 
     def programs():
@@ -229,6 +254,16 @@ def test_chaotic_run_matches_fixed_order_bitwise(split):
         assert cp.loss_acc.numpy().tobytes() == rp.loss_acc.numpy().tobytes()
         for a, b in zip(cp.d_stage + cp.d_io, rp.d_stage + rp.d_io):
             assert _same(a, b)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["fused", "bfw"])
+def test_chaotic_run_matches_fixed_order_bitwise(split):
+    _check_chaotic_run_matches_fixed_order(split)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["fused", "bfw"])
+def test_zamba2_chaotic_run_matches_fixed_order_bitwise(split):
+    _check_chaotic_run_matches_fixed_order(split, "zamba2-1.2b", layers=3)
 
 
 def test_mid_run_finalize_raises_instead_of_corrupting_order():
