@@ -14,15 +14,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    tolerance; then the kernel's time at each main path's shape beside its
    plain version's, one library call's (a yardstick only: the port never
    calls it) and the card's bound for the same work;
+   K3 (flash decode) is also replayed from one CUDA graph at three
+   lengths, written into its length tensor in place;
 4. an end-to-end check on a small input per main path: the port's model
    forward on the card (kernels) against the same weights on the CPU
-   (plain versions), at the arch's full widths;
+   (plain versions), at the arch's full widths; and the same for serving:
+   seamless with 2 + 2 layers, 4 greedy tokens, then one more pass whose
+   last hidden state is compared;
 5. the main paths, each through ``repro_torch.launch.train`` (actor
    training, full size, 4 stages, 8 microbatches of 1 x 2048 tokens):
    ``paper-gpt3-large`` hint bf for 3 steps, then ``--hint bfw
    --split-backward`` for 2; ``zamba2-1.2b`` bf for 3 steps, then bfw for
-   1.  The launch counts are zeroed just before each run and read just
-   after, and every kernel of the path must have launched in each.
+   1; then ``repro_torch.launch.serve`` (full size, 4 stages, batch 8,
+   cache 4096): ``seamless-m4t-large-v2`` for 32 tokens (the path of K3),
+   ``zamba2-1.2b`` and ``paper-gpt3-large`` for 8.  The launch counts are
+   zeroed just before each run and read just after; every kernel of the
+   path must have launched in each, a serve run exactly as often as its
+   layers give, and one more decode pass after a serve run must give
+   finite logits.
 
 The last three lines are the card, the per-kernel JSON record and the
 result JSON.  A copy of the record goes to ``chiprun_out/chip_smoke.json``.
@@ -65,6 +74,15 @@ SSD_SHAPES = [
     (1, 192, 2, 16, 8, 64),
     (2, 100, 2, 16, 8, 64),
 ]
+#: (b, S, hq, hkv, hd, length, window): the seamless serve path's cross
+#: attention (one micro-group against enc_len 1024), then tests/test_kernels.py
+DECODE_SHAPES = [
+    (1, 1024, 16, 16, 64, 1024, 0),
+    (2, 300, 8, 2, 64, 157, 0),
+    (1, 1024, 4, 1, 128, 1024, 0),
+    (2, 512, 4, 4, 64, 300, 128),
+    (1, 64, 2, 2, 32, 1, 0),
+]
 #: main path -> the shapes its kernels run at (timed at these)
 PATH_SHAPES = {
     "paper-gpt3-large": {"attn": [ATTN_SHAPES[0]], "norm": [(2048, 1536)],
@@ -72,6 +90,8 @@ PATH_SHAPES = {
     "zamba2-1.2b": {"attn": [ATTN_SHAPES[1]],
                     "norm": [(2048, 2048), (2048, 4096)],
                     "ssd": [SSD_SHAPES[0]]},
+    "seamless-m4t-large-v2 serve": {"attn": [], "norm": [(1, 1024)],
+                                    "ssd": []},
 }
 
 COMMON_ARGS = ["--runtime", "actor", "--full-size", "--stages", "4",
@@ -89,6 +109,12 @@ MAIN_PATHS = [
       ("bfw", ["--steps", "1"] + BFW)],
      ("flash_attention_fwd", "rmsnorm", "ssd_scan")),
 ]
+SERVE_ARGS = ["--full-size", "--stages", "4", "--batch", "8", "--cache-len",
+              "4096", "--device", "cuda"]
+#: (arch, tokens): the serve runs; each must launch its kernels exactly as
+#: often as ``serve_launches`` counts from its layers
+SERVE_PATHS = [("seamless-m4t-large-v2", 32), ("zamba2-1.2b", 8),
+               ("paper-gpt3-large", 8)]
 
 
 def card(query: str = "name,power.limit") -> str:
@@ -243,8 +269,10 @@ def phase_rmsnorm(record):
                 e = check_close(f"[{rows}, {d}] {dn}", got,
                                 rn.rmsnorm_plain(x, scale), TOL[dn])
                 err = e if dtype == torch.bfloat16 else err
-            n_sets = max(4, (2 * 50 * 2**20) // (rows * d * 2) + 1)
-            sets = []  # more distinct inputs than the 50 MB L2 holds
+            # more distinct inputs than the 50 MB L2 holds, up to one per
+            # timed call (a [1, d] row stays L2-resident, as in the model)
+            n_sets = min(64, max(4, (2 * 50 * 2**20) // (rows * d * 2) + 1))
+            sets = []
             for _ in range(n_sets):
                 x = torch.randn((rows, d), generator=g,
                                 device="cuda").to(torch.bfloat16)
@@ -348,6 +376,94 @@ def phase_ssd(record):
         "src/repro/kernels/ssd_scan.py:56", timings)
 
 
+def decode_inputs(shape, dtype, seed):
+    """q [b, 1, hq, hd] and k, v caches [b, S, hkv, hd] in the model's
+    layout; and q pre-scaled with the caches viewed as the kernel's
+    [b, h, S, hd] (the main path's strides)."""
+    import torch
+
+    b, S, hq, hkv, hd, _, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, 1, hq, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, S, hkv, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, S, hkv, hd), generator=g, device="cuda").to(dtype)
+    qs = (q * hd ** -0.5).to(dtype).transpose(1, 2)
+    return (q, k, v), (qs, k.transpose(1, 2), v.transpose(1, 2))
+
+
+def phase_decode(record):
+    """K3 against its plain version on the same inputs (the wrapper the
+    model calls, ``ops.decode_attention``), one CUDA graph replayed at
+    three lengths, then its time at the serve shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops, ref
+
+    print("K3 flash_decode (CUDA) vs its plain version:")
+    errs = {}
+    for shape in DECODE_SHAPES:
+        b, S, hq, hkv, hd, length, window = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            (q, k, v), (qs, kt, vt) = decode_inputs(shape, dtype,
+                                                    seed=hash(shape) % 2**31)
+            got = ops.decode_attention(q, k, v, length, window=window)
+            torch.cuda.synchronize()
+            want = fd.flash_decode_plain(qs, kt, vt, length, window=window)
+            errs[shape, dn] = check_close(
+                f"b{b} S{S} hq{hq} hkv{hkv} hd{hd} length{length} "
+                f"w{window} {dn}", got, want.transpose(1, 2), TOL[dn])
+
+    # tests/test_kernels.py::test_decode_length_is_dynamic on the card: one
+    # captured launch sequence serves every length written into the tensor
+    shape = (1, 256, 4, 2, 32, 256, 0)
+    (q, k, v), (qs, kt, vt) = decode_inputs(shape, torch.float32, seed=3)
+    len_t = torch.full((1,), 256, dtype=torch.int32, device="cuda")
+    fd.flash_decode(qs, kt, vt, len_t)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd.flash_decode(qs, kt, vt, len_t)
+    for length in (1, 100, 256):
+        len_t.fill_(length)
+        graph.replay()
+        torch.cuda.synchronize()
+        lengths = torch.full((1,), length, device="cuda")
+        check_close(f"one graph, length {length} vs decode_ref",
+                    out.transpose(1, 2), ref.decode_ref(q, k, v, lengths),
+                    TOL["float32"])
+
+    timings = []
+    shape = DECODE_SHAPES[0]
+    b, S, hq, hkv, hd, length, _ = shape
+    per_set = 2 * b * S * hkv * hd * 2
+    sets = [decode_inputs(shape, torch.bfloat16, seed=i)[1]
+            for i in range(50 * 2**20 // per_set + 2)]  # more than L2 holds
+    len_t = torch.full((1,), length, dtype=torch.int32, device="cuda")
+    ms = time_ms(lambda q, k, v: fd.flash_decode(q, k, v, length), sets)
+    plain_ms = time_ms(lambda q, k, v: fd.flash_decode_plain(q, k, v, len_t),
+                       sets)
+    lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, scale=1.0), sets)
+    nbytes = 2 * b * length * hkv * hd * 2 + 2 * b * hq * hd * 2
+    flops = 4 * b * hq * length * hd
+    bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    print(f"  seamless serve shape {shape} bf16: kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bound_ms:.5f} ms "
+          f"({bound_by}: {nbytes:.4g} B / 3.35 TB/s, {flops:.4g} FLOP / "
+          f"989 TFLOP/s)")
+    timings.append({"path": "seamless-m4t-large-v2 serve",
+                    "shape": list(shape),
+                    "max_abs_err": errs[shape, "bfloat16"], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms})
+    record["flash_decode"] = kernel_entry(
+        "flash_decode", "cuda", "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_decode.py:68", timings)
+
+
 def small_config(arch: str, layers: int):
     import dataclasses
 
@@ -399,6 +515,95 @@ def phase_small_model():
         check_close(f"{arch} widths, {layers} layers (shared slots "
                     f"{model.shared_flags.tolist()}), 256 tokens: logits",
                     got.cpu(), want, 1e-3)
+
+
+def decode_pass(model, sp, io, caches, tokens, pos):
+    """One more greedy-decode pass outside the serve step: every batch row
+    through every stage's ``stage_decode`` (caches updated in place).
+    Returns the last stage's hidden state [B, 1, d] and the float32 logits
+    [B, padded vocab]."""
+    import torch
+
+    from repro_torch.models.build import tree_map
+
+    with torch.inference_mode():
+        hs = []
+        for row in range(tokens.shape[0]):
+            x = io.embed[tokens[row:row + 1]][:, None]
+            for s in range(model.num_stages):
+                c = tree_map(lambda t: t[:, row:row + 1], caches[s])
+                x, _ = model.stage_decode(sp[s], io, x, c, pos, {},
+                                          model.rows(s))
+            hs.append(x)
+        h = torch.cat(hs)
+        return h, model.head_logits(io, h)[:, 0].float()
+
+
+def serve_launches(model, batch: int) -> dict[str, int]:
+    """K2 and K3 launches of one serve step, counted from the layers: per
+    batch row (one-row micro-groups), 2 norms per attention or Mamba layer
+    and shared-block application, 3 and one K3 per ``dec`` layer, none for
+    ``enc``, plus the head's norm."""
+    norms = {"attn": 2, "attn_local": 2, "attn_global": 2, "mamba": 2,
+             "dec": 3, "enc": 0}
+    kinds = [model.layer_types[t] for t in model.type_ids.ravel() if t >= 0]
+    shared = int(model.shared_flags.sum()) if model.cfg.shared_attn_period \
+        else 0
+    return {"rmsnorm": batch * (sum(norms[k] for k in kinds) + 2 * shared
+                                + 1),
+            "flash_decode": batch * kinds.count("dec")}
+
+
+def phase_small_serve():
+    """Greedy serving on the card (kernels) against the CPU (plain
+    versions) on identical weights and caches: seamless at full widths with
+    2 encoder + 2 decoder layers, float32, batch 2, the encoder's keys and
+    values seeded (enc_len 1024), 4 tokens; then one more pass whose last
+    hidden state must agree."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.build import build
+    from repro_torch.pipeline.decode import DecodeOptions, make_serve_fn
+
+    print("small-input serve, card (kernels) vs CPU (plain), float32:")
+    cfg = dataclasses.replace(small_config("seamless-m4t-large-v2", 4),
+                              encoder_layers=2)
+    model = build(cfg, num_stages=2)
+    sp_cpu = [model.init_stage_params(s, seed=3, device="cpu")
+              for s in range(2)]
+    io_cpu = model.init_io_params(seed=3, device="cpu")
+    caches_cpu = [model.init_stage_cache(2, 64, 1024, device="cpu")
+                  for _ in range(2)]
+    g = torch.Generator().manual_seed(11)
+    for c in caches_cpu:
+        for name in ("xk", "xv"):
+            c[name].copy_(torch.randn(c[name].shape, generator=g))
+    step = make_serve_fn(model, DecodeOptions(mb_rows=1, cache_len=64,
+                                              enc_len=1024), num_groups=2)
+    first = torch.tensor([17, 250_000])
+    out = {}
+    for dev, sp, io, caches in (
+            ("cpu", sp_cpu, io_cpu, caches_cpu),
+            ("cuda", [copy.deepcopy(p).to("cuda") for p in sp_cpu],
+             copy.deepcopy(io_cpu).to("cuda"),
+             [{k: t.to("cuda") for k, t in c.items()} for c in caches_cpu])):
+        toks, seq = first.to(dev), [first.tolist()]
+        for pos in range(4):
+            toks = step(sp, io, caches, {"tokens": toks}, pos)
+            seq.append(toks.tolist())
+        h, logits = decode_pass(model, sp, io, caches, toks, 4)
+        out[dev] = (seq, h.cpu(), logits.cpu())
+    if out["cuda"][0] != out["cpu"][0]:
+        raise AssertionError(f"greedy tokens differ: card {out['cuda'][0]} "
+                             f"vs CPU {out['cpu'][0]}")
+    print(f"  tokens equal on the card and the CPU: {out['cuda'][0]}")
+    if not torch.isfinite(out["cuda"][2]).all():
+        raise AssertionError("non-finite logits on the card")
+    check_close("seamless widths, 2 + 2 layers, 5th pass: last hidden state",
+                out["cuda"][1], out["cpu"][1], 1e-3)
 
 
 def main_path_work(argv) -> tuple[int, float]:
@@ -469,6 +674,66 @@ def phase_main_path():
     return runs
 
 
+def phase_serve_path():
+    """The serve runs of SERVE_PATHS through ``launch.serve``; each is
+    checked for its exact launch counts, tokens inside the padded vocab,
+    and finite logits from one more decode pass (outside the counts)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    runs = {}
+    for arch, tokens in SERVE_PATHS:
+        argv = ["--arch", arch, "--tokens", str(tokens)] + SERVE_ARGS
+        print(f"main path {arch} (serve): python -m repro_torch.launch.serve "
+              + " ".join(argv))
+        args = serve.parser().parse_args(argv)
+        server = serve.build_server(arch, stages=args.stages, layers=None,
+                                    batch=args.batch,
+                                    cache_len=args.cache_len, reduced=False,
+                                    device="cuda", seed=args.seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        run = serve.serve(args, server=server)
+        counts = ops.launch_counts()
+        mem = torch.cuda.max_memory_allocated()
+        model, cfg = server["model"], server["cfg"]
+        want = {k: v * tokens for k, v in
+                serve_launches(model, args.batch).items()}
+        steady = run.step_seconds[1:]
+        print(f"  step seconds {run.step_seconds}  launches {counts} "
+              f"({ {k: v / tokens for k, v in counts.items()} } per step; "
+              f"from the layers {want})  peak memory {mem / 2**30:.2f} GiB")
+        print(f"  first step {run.step_seconds[0]:.3f} s, then "
+              f"{sum(steady) / len(steady) * 1e3:.2f} ms/step, "
+              f"{args.batch * len(steady) / sum(steady):.1f} tokens/s")
+        print("  card after the run (SM clock, max SM clock, power, "
+              "temperature): " + card("clocks.sm,clocks.max.sm,"
+                                      "power.draw,temperature.gpu"))
+        for name, n in want.items():
+            if counts[name] != n:
+                raise AssertionError(f"the {arch} serve run launched "
+                                     f"{name} {counts[name]} times, its "
+                                     f"layers give {n}")
+        toks = torch.tensor(run.tokens)
+        if toks.shape != (args.batch, tokens + 1) or not (
+                (toks >= 0) & (toks < cfg.padded_vocab())).all():
+            raise AssertionError(f"{arch} serve tokens of shape "
+                                 f"{tuple(toks.shape)} or outside the vocab")
+        _, logits = decode_pass(model, server["sp"], server["io"],
+                                server["caches"], toks[:, -1].cuda(), tokens)
+        if logits.shape != (args.batch, cfg.padded_vocab()) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: logits of shape "
+                                 f"{tuple(logits.shape)}, or not finite")
+        runs[arch, "serve"] = (run, counts, mem)
+        del server
+        torch.cuda.empty_cache()
+    return runs
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     t_start = time.perf_counter()
@@ -492,7 +757,7 @@ def main(argv=None) -> int:
           f"CUDA {torch.version.cuda}  triton {triton.__version__}")
 
     t0 = time.perf_counter()
-    secs = _build.build_all(["flash_attention", "ssd_scan"])
+    secs = _build.build_all(["flash_attention", "ssd_scan", "flash_decode"])
     for name, (s, log) in _build.BUILD_LOG.items():
         print(f"built {name}.cu in {s:.1f} s" + (f"\n{log}" if log.strip()
                                                   else ""))
@@ -503,10 +768,14 @@ def main(argv=None) -> int:
     phase_attention(record)
     phase_rmsnorm(record)
     phase_ssd(record)
+    phase_decode(record)
     if "--kernels-only" in argv:
         return 0
     phase_small_model()
+    phase_small_serve()
     runs = phase_main_path()
+    torch.cuda.empty_cache()
+    runs.update(phase_serve_path())
     kernels = []
     for name, rec in record.items():
         by_path = {f"{arch} {run}": c[name] for (arch, run), (_, c, _)
@@ -516,7 +785,9 @@ def main(argv=None) -> int:
     out = {"kernels": kernels}
     summary = {**out, "card": smi,
                "main_path": {f"{arch} {name}": {
-                   "losses": r.losses, "step_seconds": r.step_seconds,
+                   **({"tokens": r.tokens} if name == "serve"
+                      else {"losses": r.losses}),
+                   "step_seconds": r.step_seconds,
                    "launches": c, "peak_memory_bytes": mem}
                    for (arch, name), (r, c, mem) in runs.items()}}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)

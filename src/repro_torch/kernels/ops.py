@@ -13,11 +13,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
 
 KERNELS = {"flash_attention_fwd": _fa.COUNTER, "rmsnorm": _rn.COUNTER,
-           "ssd_scan": _ssd.COUNTER}
+           "flash_decode": _fd.COUNTER, "ssd_scan": _ssd.COUNTER}
 
 
 def launch_counts() -> dict[str, int]:
@@ -66,6 +67,21 @@ def flash_attention(q, k, v, positions=None, *, causal: bool = True,
     return _FlashAttention.apply(q, k, v, causal, window)
 
 
+def decode_attention(q, k_cache, v_cache, length, *, window: int = 0):
+    """q: [b, 1, hq, hd]; caches: [b, S, hkv, hd]; length: an int or an
+    int32 device tensor of one element (every row's valid length).
+
+    Kernel K3 (``flash_decode``): q is scaled by ``hd**-0.5`` and rounded
+    to its dtype, as the reference's Pallas path does; the caches are
+    passed as strided views, never copied.  Inference only (no backward).
+    """
+    hd = q.shape[-1]
+    qt = (q * hd ** -0.5).to(q.dtype).transpose(1, 2)
+    out = _fd.flash_decode(qt, k_cache.transpose(1, 2),
+                           v_cache.transpose(1, 2), length, window=window)
+    return out.transpose(1, 2)
+
+
 # ---------------------------------------------------------------------------
 # SSD (Mamba-2)
 # ---------------------------------------------------------------------------
@@ -106,6 +122,18 @@ def ssd(x, dt, A, B, C, D, *, chunk: int = 128):
         B = F.pad(B, (0, 0, 0, pad))
         C = F.pad(C, (0, 0, 0, pad))
     return _SSD.apply(x, dt, A, B, C, D, chunk)[:, :s]
+
+
+def ssd_decode_step(state, x, dt, A, B, C, D):
+    """Single-token SSD update (plain PyTorch, as in the reference).
+    state: [b, nh, hd, ds] float32; x: [b, nh, hd]; dt: [b, nh]; B, C:
+    [b, ds].  Returns (y [b, nh, hd] in x's dtype, new float32 state)."""
+    decay = torch.exp(A.float()[None, :] * dt.float())
+    upd = torch.einsum("bnh,bs->bnhs", x.float() * dt[..., None], B.float())
+    state = state * decay[..., None, None] + upd
+    y = torch.einsum("bnhs,bs->bnh", state, C.float())
+    y = y + D.float()[None, :, None] * x.float()
+    return y.to(x.dtype), state
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Plain PyTorch oracles for the ported kernels (the allclose ground truth).
 
-Counterparts of ``repro.kernels.ref.attention_ref``, ``rmsnorm_ref``,
-``ssd_ref`` and ``ssd_ref_with_state``: dense, unblocked (the SSD one
-sequential over time), float32 arithmetic, same layouts and contracts.
+Counterparts of ``repro.kernels.ref.attention_ref``, ``decode_ref``,
+``rmsnorm_ref``, ``ssd_ref`` and ``ssd_ref_with_state``: dense, unblocked
+(the SSD one sequential over time), float32 arithmetic, same layouts and
+contracts.
 """
 from __future__ import annotations
 
@@ -32,6 +33,26 @@ def attention_ref(q, k, v, positions, causal: bool = True, window: int = 0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqj,bjkd->bkgqd", p, v.float())
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def decode_ref(q, k_cache, v_cache, lengths, window: int = 0):
+    """Single-token decode attention reference.
+
+    q: [b, 1, hq, hd]; caches: [b, S, hkv, hd]; lengths: [b].
+    """
+    b, _, hq, hd = q.shape
+    _, S, hkv, _ = k_cache.shape
+    g = hq // hkv
+    qf = (q.float() * hd**-0.5).reshape(b, hkv, g, hd)
+    s = torch.einsum("bkgd,bjkd->bkgj", qf, k_cache.float())
+    pos = torch.arange(S, device=q.device)[None, :]
+    mask = pos < lengths[:, None]
+    if window > 0:
+        mask &= pos >= lengths[:, None] - window
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgj,bjkd->bkgd", p, v_cache.float())
+    return o.reshape(b, 1, hq, hd).to(q.dtype)
 
 
 def rmsnorm_ref(x, scale, eps: float = 1e-5):

@@ -1,12 +1,16 @@
-"""Where the device time of one training step goes (``torch.profiler``).
+"""Where the device time of one training or serve step goes (``torch.profiler``).
 
     python -m repro_torch.launch.profile [--out PATH] [train flags]
+    python -m repro_torch.launch.profile --serve [--out PATH] [serve flags]
 
 Runs :func:`repro_torch.launch.train.train_actor` for three steps (default
 flags: the first main path of ``chip_smoke.py``: paper-gpt3-large full
 size, 4 stages, 8 microbatches of 1 x 2048 tokens, hint bf; give train
-flags, e.g. ``--arch zamba2-1.2b --full-size ...``, for another) and traces
-the third with CUDA activity.  Prints the step's wall time, the device's
+flags, e.g. ``--arch zamba2-1.2b --full-size ...``, for another), or with
+``--serve`` :func:`repro_torch.launch.serve.serve` for three tokens
+(default flags: the serve main path, seamless-m4t-large-v2 full size, 4
+stages, batch 8, cache 4096), and traces the third step with CUDA
+activity.  Prints the step's wall time, the device's
 busy time (union of kernel intervals; every stage shares the default
 stream) and idle share, the time per kernel category and the heaviest
 kernels, and writes the same as JSON to ``--out``.  Needs a GPU; the
@@ -22,14 +26,18 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.launch import train
+from repro_torch.launch import serve, train
 
 DEFAULT_ARGS = ["--arch", "paper-gpt3-large", "--full-size", "--stages", "4",
                 "--microbatches", "8", "--mb-rows", "1", "--seq", "2048",
                 "--hint", "bf"]
+DEFAULT_SERVE_ARGS = ["--arch", "seamless-m4t-large-v2", "--full-size",
+                      "--stages", "4", "--batch", "8", "--cache-len", "4096"]
 #: (category, substrings of the kernel name), first match wins
 CATEGORIES = (
     ("K1 flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("K3 flash_decode", ("flash_decode_split_kernel",
+                         "flash_decode_combine_kernel")),
     ("K2 rmsnorm", ("_rmsnorm_kernel",)),
     ("K4 ssd_scan", ("ssd_scan_kernel",)),
     ("matmul float32 (no tensor cores)", ("f32f32", "sgemm")),
@@ -105,8 +113,16 @@ def main(argv=None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--serve", action="store_true")
     own, rest = ap.parse_known_args(argv)
-    args = train.parser().parse_args((rest or DEFAULT_ARGS) + ["--steps", "3"])
+    if own.serve:
+        args = serve.parser().parse_args((rest or DEFAULT_SERVE_ARGS)
+                                         + ["--tokens", "3"])
+        run_fn = serve.serve
+    else:
+        args = train.parser().parse_args((rest or DEFAULT_ARGS)
+                                         + ["--steps", "3"])
+        run_fn = train.train_actor
     train.resolve_device(args.device)
     captured = {}
 
@@ -119,7 +135,7 @@ def main(argv=None) -> dict:
             schedule=torch.profiler.schedule(skip_first=1, wait=0, warmup=1,
                                              active=1, repeat=1),
             on_trace_ready=ready) as prof:
-        run = train.train_actor(args, step_hook=lambda step: prof.step())
+        run = run_fn(args, step_hook=lambda step: prof.step())
     out = breakdown(captured["events"], run.step_seconds[2])
     if not out["kernels"]:
         raise RuntimeError("no device kernel was traced: the breakdown is "

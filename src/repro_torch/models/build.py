@@ -11,8 +11,14 @@ stacked pytree, e.g. ``slots.{i}.blk.attn.wq`` of stage ``s`` is
 The port runs the attention layer kinds (``attn``, ``attn_local``,
 ``attn_global``), Mamba-2 layers (``mamba``) and zamba2's shared attention
 block (``io.shared_blk``, applied before every ``shared_attn_period``-th
-layer); the other kinds raise ``NotImplementedError`` naming the ROADMAP
-slice they move with.
+layer), forward and decode; the enc-dec kinds (``enc``, ``dec``) at decode
+only (``stage_decode``; the reference runs their forward only in its SPMD
+executor).  The other kinds raise ``NotImplementedError`` naming the
+ROADMAP slice they move with.
+
+Decode caches are trees of nested dicts, one per stage, each leaf stacked
+``[l_max, batch, ...]`` (the reference's ``[S, l_max, ...]`` tree holds one
+per stage), and ``stage_decode`` updates them in place.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import (
     ArchConfig,
     ShapeCell,
@@ -31,19 +38,26 @@ from repro_torch.models.common import (
     stage_layout,
 )
 from repro_torch.models.layers import (
+    Attention,
     DecoderLayer,
-    dense_param,
+    decode_attention_block,
     decoder_layer,
+    decoder_layer_decode,
+    dense_param,
+    ffn_block,
     rmsnorm,
     zeros_param,
 )
-from repro_torch.models.ssm import MambaLayer, mamba_layer
+from repro_torch.models.ssm import (
+    MambaLayer,
+    init_mamba_cache,
+    mamba_layer,
+    mamba_layer_decode,
+)
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
 #: layer kind -> the ROADMAP queue-1 slice that ports it
 LATER_SLICES = {
-    "enc": "other families (seamless enc-dec)",
-    "dec": "other families (seamless enc-dec)",
     "moe": "other families (MoE)",
     "dense": "other families (MoE)",
     "mlstm": "other families (xLSTM)",
@@ -57,6 +71,14 @@ def _not_ported(what: str, slice_name: str) -> NotImplementedError:
         f"slice (ROADMAP.md queue 1)")
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (the decode cache trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def make_generator(seed: int, salt: int, device) -> torch.Generator:
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(seed * 1_000_003 + salt)
@@ -65,16 +87,20 @@ def make_generator(seed: int, salt: int, device) -> torch.Generator:
 
 class LayerSlot(nn.Module):
     """Union parameters of one layer slot over the arch's layer kinds (the
-    reference's ``init_layer_params``): ``blk`` for the attention kinds,
-    ``mamba`` for Mamba-2."""
+    reference's ``init_layer_params``): ``blk`` for the attention and
+    enc-dec kinds, ``cross_ln`` and ``cross`` (cross-attention, no biases)
+    for ``dec``, ``mamba`` for Mamba-2."""
 
     def __init__(self, cfg: ArchConfig, layer_types, gen, device):
         super().__init__()
         for kind in layer_types:
             if kind in LATER_SLICES:
                 raise _not_ported(f"layer kind {kind!r}", LATER_SLICES[kind])
-        if set(layer_types) & set(ATTN_KINDS):
+        if set(layer_types) & {*ATTN_KINDS, "enc", "dec"}:
             self.blk = DecoderLayer(cfg, gen, device)
+        if "dec" in layer_types:
+            self.cross_ln = zeros_param((cfg.d_model,), cfg.dtype, device)
+            self.cross = Attention(cfg, gen, device, cross=True)
         if "mamba" in layer_types:
             self.mamba = MambaLayer(cfg, gen, device)
 
@@ -141,18 +167,28 @@ class ArchModel:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
+    def _window(self, kind: str) -> int:
+        """Sliding window of an attention kind (0 = none)."""
+        if kind == "attn":
+            return self.cfg.sliding_window
+        if kind == "attn_local":
+            return self.cfg.sliding_window or 1024
+        return 0
+
     def _branch(self, kind: str):
         cfg = self.cfg
         if kind == "mamba":
             return lambda slot, io, x, aux: mamba_layer(slot.mamba, x, cfg)
-        if kind == "attn":
-            window = cfg.sliding_window
-        elif kind == "attn_local":
-            window = cfg.sliding_window or 1024
-        elif kind == "attn_global":
-            window = 0
-        else:
+        if kind in ("enc", "dec"):
+            raise NotImplementedError(
+                f"the {kind!r} forward is not in the port: the reference "
+                f"runs the enc-dec forward only in its SPMD executor "
+                f"(pipeline/executor.py), which moves with the multi-device "
+                f"slice (ROADMAP.md queue 1, item 18); its decode "
+                f"(stage_decode) is ported")
+        if kind not in ATTN_KINDS:
             raise _not_ported(f"layer kind {kind!r}", LATER_SLICES[kind])
+        window = self._window(kind)
 
         def attn_like(slot: LayerSlot, io, x, aux):
             return decoder_layer(slot.blk, x, aux["positions"], cfg,
@@ -188,6 +224,101 @@ class ArchModel:
         return fn(slot, io, x, aux)
 
     # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+    def init_layer_cache(self, batch: int, seq: int, enc_len: int = 0, *,
+                         device="cuda") -> dict:
+        """Union cache of one layer slot (the reference's): ``k``/``v`` for
+        the attention kinds, ``dec`` and the shared block, ``xk``/``xv``
+        (the encoder's keys and values) when the arch has ``dec``,
+        ``mamba``'s (conv, ssm) pair."""
+        cfg = self.cfg
+        types = set(self.layer_types)
+        shape = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        xshape = (batch, enc_len) + shape[2:]
+        c: dict = {}
+        if types & {*ATTN_KINDS, "dec"} or cfg.shared_attn_period:
+            c["k"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+            c["v"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        if "dec" in types:
+            c["xk"] = torch.zeros(xshape, dtype=cfg.dtype, device=device)
+            c["xv"] = torch.zeros(xshape, dtype=cfg.dtype, device=device)
+        if "mamba" in types:
+            c["mamba"] = init_mamba_cache(batch, cfg, device=device)
+        return c
+
+    def init_stage_cache(self, batch: int, seq: int, enc_len: int = 0, *,
+                         device="cuda") -> dict:
+        """One stage's cache: each leaf of ``init_layer_cache`` stacked
+        ``[l_max, ...]``, zeros."""
+        one = self.init_layer_cache(batch, seq, enc_len, device="meta")
+        return tree_map(lambda t: torch.zeros(
+            (self.l_max,) + tuple(t.shape), dtype=t.dtype, device=device), one)
+
+    def _decode_branch(self, kind: str):
+        """fn(slot, io, x [b, 1, d], cache, pos, aux) -> y; ``cache`` is the
+        slot's cache tree, updated in place."""
+        cfg = self.cfg
+        if kind in ATTN_KINDS:
+            window = self._window(kind)
+
+            def attn_like(slot: LayerSlot, io, x, cache, pos, aux):
+                return decoder_layer_decode(
+                    slot.blk, x, cache, pos, cfg, window=window,
+                    axis_name=aux.get("sp_axis"))[0]
+
+            return attn_like
+        if kind == "enc":
+            # encoder layers are inert at decode time (context pre-filled)
+            return lambda slot, io, x, cache, pos, aux: x
+        if kind == "dec":
+
+            def dec_fn(slot: LayerSlot, io, x, cache, pos, aux):
+                h = rmsnorm(x, slot.blk.ln1, cfg.norm_eps)
+                x = x + decode_attention_block(slot.blk.attn, h, cache, pos,
+                                               cfg)[0]
+                # cross attention against the encoder's keys and values:
+                # kernel K3, over all enc_len of them
+                h = rmsnorm(x, slot.cross_ln, cfg.norm_eps)
+                b = x.shape[0]
+                q = (h @ slot.cross.wq).reshape(b, 1, cfg.num_heads,
+                                                cfg.resolved_head_dim)
+                o = ops.decode_attention(q, cache["xk"], cache["xv"],
+                                         cache["xk"].shape[1])
+                x = x + o.reshape(b, 1, -1) @ slot.cross.wo
+                h = rmsnorm(x, slot.blk.ln2, cfg.norm_eps)
+                return x + ffn_block(slot.blk.ffn, h, cfg.act)
+
+            return dec_fn
+        if kind == "mamba":
+            return lambda slot, io, x, cache, pos, aux: mamba_layer_decode(
+                slot.mamba, x, cache["mamba"], cfg)[0]
+        raise _not_ported(f"layer kind {kind!r}", LATER_SLICES[kind])
+
+    def stage_decode(self, stage_params: StageParams, io: IOParams, x,
+                     stage_cache: dict, pos: int, aux: dict, rows):
+        """One token through this stage's enabled slots.
+
+        x: [b, 1, d]; stage_cache: leaves [l_max, b, ...] (a view of the
+        batch rows being decoded); pos: the current position.  The caches
+        are updated in place, a disabled slot's left as it is (the
+        reference's ``where(en, new, old)``).  Returns ``(x, stage_cache)``.
+        A slot flagged ``shared`` first applies ``io.shared_blk``, whose KV
+        cache rides in the slot's ``k``/``v``.
+        """
+        branches = {k: self._decode_branch(k) for k in self.layer_types}
+        for i, slot in enumerate(stage_params.slots):
+            if not rows["enabled"][i]:
+                continue
+            cache = tree_map(lambda c: c[i], stage_cache)
+            if self.cfg.shared_attn_period and rows["shared"][i]:
+                x = decoder_layer_decode(io.shared_blk, x, cache, pos,
+                                         self.cfg)[0]
+            x = branches[self.layer_types[int(rows["type_id"][i])]](
+                slot, io, x, cache, pos, aux)
+        return x, stage_cache
+
+    # ------------------------------------------------------------------
     # embedding / head
     # ------------------------------------------------------------------
     def embed(self, io: IOParams, batch: dict):
@@ -206,7 +337,6 @@ class ArchModel:
         for s in range(self.num_stages):
             x = self.stage_forward(stage_params[s], io, x, aux, self.rows(s))
         return self.head_logits(io, x)
-
 
     # ------------------------------------------------------------------
     # analytic accounting

@@ -9,7 +9,10 @@ The port's module names map onto those paths one-to-one:
     ``embed``                            <->  ``io['embed']``
     ``shared_blk.attn.wq``               <->  ``io['shared_blk']['attn']['wq']``
 
-so both frameworks can compute on identical weights.  Arrays arrive as
+so both frameworks can compute on identical weights.  Decode caches map the
+same way: the reference's stacked ``[num_stages, l_max, ...]`` cache tree
+becomes one tree per stage with ``[l_max, ...]`` leaves
+(:func:`cache_from_reference`).  Arrays arrive as
 numpy (bfloat16 arrays as numpy's ``bfloat16`` extension dtype).  A leaf
 whose dtype differs from the port parameter's raises instead of being cast
 (the float32 leaves of a bfloat16 model, e.g. a Mamba layer's ``a_log``,
@@ -20,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.build import ArchModel, IOParams, StageParams
+from repro_torch.models.build import ArchModel, IOParams, StageParams, tree_map
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -64,3 +67,23 @@ def params_from_reference(model: ArchModel, stage_params_np: dict,
         for name, p in io.named_parameters():
             _load(p, np.asarray(_leaf(io_params_np, name)), name, device)
     return stages, io
+
+
+def cache_from_reference(model: ArchModel, cache_np: dict, device
+                         ) -> list[dict]:
+    """The port's per-stage decode caches holding the reference's stacked
+    ``[num_stages, l_max, batch, ...]`` cache tree (keys, dtypes and shapes
+    must be the port's ``init_stage_cache``'s; a mismatch raises)."""
+    # every ported arch has an attention (or shared-block) k/v cache
+    _, _, batch, seq = np.shape(cache_np["k"])[:4]
+    enc_len = np.shape(cache_np["xk"])[3] if "xk" in cache_np else 0
+    stages = []
+    for s in range(model.num_stages):
+        cache = model.init_stage_cache(batch, seq, enc_len, device=device)
+        if set(cache) != set(cache_np):
+            raise TypeError(f"reference cache keys {sorted(cache_np)} are "
+                            f"not the port's {sorted(cache)}")
+        tree_map(lambda t, a: _load(t, np.asarray(a)[s], f"stage {s} cache",
+                                    device), cache, cache_np)
+        stages.append(cache)
+    return stages

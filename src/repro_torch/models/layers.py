@@ -1,7 +1,11 @@
-"""Transformer building blocks in PyTorch (training half).
+"""Transformer building blocks in PyTorch.
 
 Port of ``repro.models.layers``: pre-norm decoder layer = RMSNorm (kernel
-K2) -> RoPE -> GQA attention (kernel K1) -> RMSNorm -> FFN.  Parameters are
+K2) -> RoPE -> GQA attention (kernel K1) -> RMSNorm -> FFN, and its decode
+half: one token against a KV cache (``decode_attention_block``,
+``decoder_layer_decode``; the plain ``decode_attention``, as the reference's
+self-attention decode reaches no kernel).  Caches are updated in place
+where the reference returns new ones.  Parameters are
 ``nn.Module``s whose weights keep the reference's ``[in, out]`` layout
 (``x @ w``), so reference parameters load by path
 (:mod:`repro_torch.models.convert`).  The port's own initialisation draws
@@ -17,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import decode_ref
 from repro_torch.models.common import ArchConfig
 
 
@@ -66,7 +71,11 @@ def apply_rope(x, positions, theta: float = 10_000.0):
 # Attention block (GQA, optional bias / sliding window)
 # ---------------------------------------------------------------------------
 class Attention(nn.Module):
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator, device):
+    """Self-attention weights, or cross-attention's (``cross``: no biases,
+    as the reference's ``init_attention(cross=True)``)."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, device,
+                 cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         nq, nkv = cfg.num_heads, cfg.num_kv_heads
@@ -74,7 +83,7 @@ class Attention(nn.Module):
         self.wk = dense_param(gen, (d, nkv * hd), cfg.dtype, device)
         self.wv = dense_param(gen, (d, nkv * hd), cfg.dtype, device)
         self.wo = dense_param(gen, (nq * hd, d), cfg.dtype, device)
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             self.bq = zeros_param((nq * hd,), cfg.dtype, device)
             self.bk = zeros_param((nkv * hd,), cfg.dtype, device)
             self.bv = zeros_param((nkv * hd,), cfg.dtype, device)
@@ -149,3 +158,48 @@ def decoder_layer(p: DecoderLayer, x, positions, cfg: ArchConfig, *,
                             window=window)
     h = rmsnorm(x, p.ln2, cfg.norm_eps)
     return x + ffn_block(p.ffn, h, cfg.act)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode variants
+# ---------------------------------------------------------------------------
+#: single-position attention against a cache, per-row lengths (plain
+#: PyTorch: the reference's self-attention decode reaches no kernel and is
+#: the same function as its oracle ``decode_ref``)
+decode_attention = decode_ref
+
+
+def decode_attention_block(p: Attention, x, cache: dict, pos: int,
+                           cfg: ArchConfig, window: int = 0,
+                           axis_name: str | None = None):
+    """One-token attention with cache update.
+
+    x: [b, 1, d]; cache: dict(k=[b, S, hkv, hd], v=[b, S, hkv, hd]); pos:
+    the current index.  The new key and value are written into the cache
+    in place (the reference returns updated copies); returns
+    ``(out [b, 1, d], cache)``.
+    """
+    if axis_name is not None:
+        raise NotImplementedError(
+            "sequence-parallel decode (a cache sharded over devices) moves "
+            "with the multi-device slice (ROADMAP.md queue 1, item 18)")
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = attention_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    cache["k"][:, pos] = k_new[:, 0]
+    cache["v"][:, pos] = v_new[:, 0]
+    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    o = decode_attention(q, cache["k"], cache["v"], lengths, window=window)
+    return o.reshape(b, 1, -1) @ p.wo, cache
+
+
+def decoder_layer_decode(p: DecoderLayer, x, cache: dict, pos: int,
+                         cfg: ArchConfig, window: int = 0, axis_name=None):
+    h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    a, cache = decode_attention_block(p.attn, h, cache, pos, cfg,
+                                      window=window, axis_name=axis_name)
+    x = x + a
+    h = rmsnorm(x, p.ln2, cfg.norm_eps)
+    return x + ffn_block(p.ffn, h, cfg.act), cache

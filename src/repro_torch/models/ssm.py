@@ -5,8 +5,9 @@ depthwise causal conv -> SiLU -> chunked SSD (kernel K4, ``ops.ssd``) ->
 gated RMSNorm (K2) -> out_proj, with the residual added here.  Parameter
 names, shapes and dtypes are the reference's ``init_mamba_layer`` leaves:
 ``a_log``, ``dt_bias`` and ``d_skip`` are float32 whatever the model dtype.
-The decode half (``init_mamba_cache``, ``mamba_layer_decode``) moves with
-the serving slice.
+Decode keeps a (conv, ssm) state pair per layer (``init_mamba_cache``,
+``mamba_layer_decode``, the plain ``ops.ssd_decode_step``), updated in
+place, so decode is O(1) in the sequence length.
 """
 from __future__ import annotations
 
@@ -84,3 +85,44 @@ def mamba_layer(p: MambaLayer, x, cfg: ArchConfig):
                 chunk=ssm.chunk).reshape(b, s, di)
     y = rmsnorm(y * F.silu(z), p.gate_ln, cfg.norm_eps)
     return x + y @ p.out_proj
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+def init_mamba_cache(batch: int, cfg: ArchConfig, device="cuda"):
+    ssm = cfg.ssm
+    d = cfg.d_model
+    di = ssm.d_inner(d)
+    nh = ssm.num_heads(d)
+    ds = ssm.d_state
+    return {
+        "conv": torch.zeros((batch, ssm.d_conv - 1, di + 2 * ds),
+                            dtype=cfg.dtype, device=device),
+        "ssm": torch.zeros((batch, nh, ssm.head_dim, ds), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def mamba_layer_decode(p: MambaLayer, x, cache: dict, cfg: ArchConfig):
+    """x: [b, 1, d]; cache: {conv [b, k-1, c], ssm [b, nh, hd, ds]}, both
+    updated in place (the reference returns new ones).  Returns
+    ``(out [b, 1, d], cache)``."""
+    b = x.shape[0]
+    ssm = cfg.ssm
+    h = rmsnorm(x, p.ln, cfg.norm_eps)
+    proj = h @ p.in_proj
+    z, xbc, dt, (di, nh, ds) = _split_proj(proj[:, 0], cfg)
+    # rolling conv state
+    window = torch.cat([cache["conv"], xbc[:, None]], dim=1)  # [b, k, c]
+    conv_out = torch.einsum("bkc,kc->bc", window, p.conv_w) + p.conv_b
+    xs, B, C = torch.split(F.silu(conv_out), [di, ds, ds], dim=-1)
+    dt_t = _softplus(dt.float() + p.dt_bias)
+    A = -torch.exp(p.a_log)
+    y, ssm_state = ops.ssd_decode_step(
+        cache["ssm"], xs.reshape(b, nh, ssm.head_dim), dt_t, A, B, C,
+        p.d_skip)
+    y = rmsnorm(y.reshape(b, di) * F.silu(z), p.gate_ln, cfg.norm_eps)
+    cache["conv"].copy_(window[:, 1:])
+    cache["ssm"].copy_(ssm_state)
+    return x + (y @ p.out_proj)[:, None], cache

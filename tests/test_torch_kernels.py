@@ -1,4 +1,5 @@
-"""Port kernels K1 (flash attention) and K2 (RMSNorm) against the reference.
+"""Port kernels K1 (flash attention), K2 (RMSNorm) and K3 (flash decode)
+against the reference.
 
 On the CPU the port's wrappers run the kernels' plain PyTorch versions; the
 reference runs its Pallas kernels in interpret mode (and its XLA VJPs for
@@ -13,11 +14,13 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.models import layers as jlayers
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as rn
-from repro_torch.kernels.ref import attention_ref, rmsnorm_ref
+from repro_torch.kernels.ref import attention_ref, decode_ref, rmsnorm_ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -29,6 +32,14 @@ SHAPES = [
     (1, 384, 8, 1, 128, 0),
     (2, 160, 4, 4, 64, 64),
     (1, 96, 4, 2, 32, 0),
+]
+#: tests/test_kernels.py decode shapes (b, S, hq, hkv, hd, length, window):
+#: ragged GQA, MQA hd 128 at full length, a window, the first token
+DECODE_SHAPES = [
+    (2, 300, 8, 2, 64, 157, 0),
+    (1, 1024, 4, 1, 128, 1024, 0),
+    (2, 512, 4, 4, 64, 300, 128),
+    (1, 64, 2, 2, 32, 1, 0),
 ]
 
 
@@ -149,6 +160,129 @@ def test_rmsnorm_grad_matches_jax_grad(shape):
 
 
 # ---------------------------------------------------------------------------
+# K3
+# ---------------------------------------------------------------------------
+def decode_inputs(b, S, hq, hkv, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, 1, hq, hd)).astype(np.float32),
+            rng.standard_normal((b, S, hkv, hd)).astype(np.float32),
+            rng.standard_normal((b, S, hkv, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,S,hq,hkv,hd,length,window", DECODE_SHAPES)
+def test_flash_decode_matches_pallas_interpret(b, S, hq, hkv, hd, length,
+                                              window, dtype):
+    qn, kn, vn = decode_inputs(b, S, hq, hkv, hd, seed=S + length)
+    (qj, qt), (kj, kt), (vj, vt) = (both(a, dtype) for a in (qn, kn, vn))
+    got = ops.decode_attention(qt, kt, vt, length, window=window)
+    assert got.shape == (b, 1, hq, hd) and got.dtype == qt.dtype
+    close(got, jops.decode_attention(qj, kj, vj, length, window=window,
+                                     backend="interpret"), TOL[dtype])
+    close(got, jref.decode_ref(qj, kj, vj, jnp.full((b,), length, jnp.int32),
+                               window), TOL[dtype])
+    # the plain version in the kernel's layout, q pre-scaled and rounded
+    qs = (qt * hd ** -0.5).to(qt.dtype).transpose(1, 2)
+    plain = fd.flash_decode_plain(qs, kt.transpose(1, 2), vt.transpose(1, 2),
+                                  length, window=window)
+    assert torch.equal(plain.transpose(1, 2), got)
+
+
+def test_decode_length_is_dynamic():
+    """tests/test_kernels.py's check: one call signature serves every
+    position; the length may also come as an int32 tensor."""
+    qn, kn, vn = decode_inputs(1, 256, 4, 2, 32, seed=3)
+    q, k, v = (torch.from_numpy(a) for a in (qn, kn, vn))
+    for length in (1, 100, 256):
+        want = jref.decode_ref(*map(jnp.asarray, (qn, kn, vn)),
+                               jnp.full((1,), length, jnp.int32))
+        close(ops.decode_attention(q, k, v, length), want, TOL["float32"])
+        close(ops.decode_attention(q, k, v, torch.tensor([length],
+                                                         dtype=torch.int32)),
+              want, TOL["float32"])
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_decode_ref_matches_reference_with_per_row_lengths(window):
+    qn, kn, vn = decode_inputs(3, 40, 4, 2, 16, seed=window)
+    lengths = np.array([1, 17, 40], np.int32)
+    want = jref.decode_ref(*map(jnp.asarray, (qn, kn, vn, lengths)), window)
+    got = decode_ref(*map(torch.from_numpy, (qn, kn, vn, lengths)), window)
+    close(got, want, TOL["float32"])
+
+
+def split_kv_emulation(q, k, v, length, window, sm_count):
+    """flash_decode.cu's two passes in PyTorch, for one split plan: pass 1
+    walks each split's 64-key tiles (skipping those outside the valid
+    range) keeping a running (m, l, acc); pass 2 merges the splits that saw
+    a key.  q: [b, hq, 1, hd] pre-scaled; caches [b, hkv, S, hd]."""
+    b, hq, _, hd = q.shape
+    hkv, S = k.shape[1], k.shape[2]
+    splits, per = fd.split_plan(S, b, hkv, sm_count)
+    assert splits * per * fd.TILE >= S > (splits - 1) * per * fd.TILE
+    length = min(max(length, 0), S)
+    lo = max(0, length - window) if window > 0 else 0
+    qg = q[:, :, 0].reshape(b, hkv, hq // hkv, hd)
+    m = torch.full((b, hkv, hq // hkv, splits), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(m.shape + (hd,))
+    for sp in range(splits):
+        for n0 in range(sp * per * fd.TILE, min(S, (sp + 1) * per * fd.TILE),
+                        fd.TILE):
+            if n0 >= length or n0 + fd.TILE <= lo:
+                continue
+            kp = torch.arange(n0, min(n0 + fd.TILE, S))
+            valid = (kp >= lo) & (kp < length)
+            s = torch.einsum("bkgd,bkjd->bkgj", qg, k[:, :, kp])
+            s = torch.where(valid, s, -1e30)
+            m_new = torch.maximum(m[..., sp], s.amax(-1))
+            p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+            corr = torch.exp(m[..., sp] - m_new)
+            l[..., sp] = l[..., sp] * corr + p.sum(-1)
+            acc[..., sp, :] = (acc[..., sp, :] * corr[..., None]
+                               + torch.einsum("bkgj,bkjd->bkgd", p,
+                                              v[:, :, kp]))
+            m[..., sp] = m_new
+    seen = l > 0
+    mx = torch.where(seen, m, -1e30).amax(-1, keepdim=True)
+    w = torch.where(seen, torch.exp(m - mx), 0.0)
+    out = (w[..., None] * acc).sum(-2) / (w * l).sum(-1, keepdim=True).clamp_min(
+        1e-30)
+    return out.reshape(b, hq, 1, hd)
+
+
+@pytest.mark.parametrize("b,S,hq,hkv,hd,length,window", DECODE_SHAPES + [
+    (1, 1024, 16, 16, 64, 1024, 0),  # the seamless serve shape
+    (1, 1024, 16, 16, 64, 1, 0),     # 15 of 16 splits empty
+    (1, 1024, 16, 16, 64, 700, 100),  # a window that empties most splits
+    (2, 4096, 8, 1, 128, 2049, 0),   # several tiles per split
+])
+def test_split_kv_plan_and_merge_match_plain_version(b, S, hq, hkv, hd,
+                                                     length, window):
+    qn, kn, vn = decode_inputs(b, S, hq, hkv, hd, seed=length)
+    q = torch.from_numpy(qn).transpose(1, 2) * hd ** -0.5
+    k, v = (torch.from_numpy(a).transpose(1, 2) for a in (kn, vn))
+    want = fd.flash_decode_plain(q, k, v, length, window=window)
+    for sm_count in (132, 1):
+        close(split_kv_emulation(q, k, v, length, window, sm_count),
+              want.numpy(), TOL["float32"])
+
+
+def test_split_plan_fills_the_card_from_capacity_alone():
+    assert fd.split_plan(1024, 1, 16, 132) == (16, 1)  # the serve shape
+    assert fd.split_plan(4096, 8, 16, 132) == (3, 22)
+    assert fd.split_plan(64, 1, 2, 132) == (1, 1)
+    assert fd.split_plan(300, 2, 2, 132) == (5, 1)
+
+
+def test_decode_plain_gives_zero_without_a_valid_key():
+    q, k, v = (torch.from_numpy(a).transpose(1, 2)
+               for a in decode_inputs(1, 64, 2, 2, 32, seed=0))
+    assert torch.equal(fd.flash_decode_plain(q, k, v, 0),
+                       torch.zeros(1, 2, 1, 32))
+
+
+# ---------------------------------------------------------------------------
 # wrappers: CPU -> plain version, never a kernel; counts only on launch
 # ---------------------------------------------------------------------------
 def test_cpu_wrappers_take_plain_versions_and_count_nothing():
@@ -160,8 +294,9 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     x = torch.randn(1, 40, 2, 16)
     ops.ssd(x, torch.rand(1, 40, 2), -torch.rand(2), torch.randn(1, 40, 8),
             torch.randn(1, 40, 8), torch.ones(2), chunk=16)
+    ops.decode_attention(q[:, :1], q, q, 7)
     assert ops.launch_counts() == {"flash_attention_fwd": 0, "rmsnorm": 0,
-                                   "ssd_scan": 0}
+                                   "flash_decode": 0, "ssd_scan": 0}
 
 
 def test_wrappers_reject_devices_without_a_kernel():
@@ -176,6 +311,9 @@ def test_wrappers_reject_devices_without_a_kernel():
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.ssd(x, torch.randn(1, 32, 2, device="meta"), h, bc, bc, h,
                 chunk=16)
+    q = torch.randn(1, 1, 2, 32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.decode_attention(q, q, q, 1)
 
 
 @pytest.mark.cuda
@@ -199,4 +337,24 @@ def test_kernels_match_plain_versions_on_card(dtype):
     close(rn.rmsnorm(x, s).cpu(), rn.rmsnorm_plain(x, s).cpu().float().numpy(),
           TOL[dtype])
     assert ops.launch_counts() == {"flash_attention_fwd": len(SHAPES),
-                                   "rmsnorm": 1, "ssd_scan": 0}
+                                   "rmsnorm": 1, "flash_decode": 0,
+                                   "ssd_scan": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_matches_plain_version_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode "
+                    "(chip_smoke.py runs it on the card)")
+    td = DTYPES[dtype][1]
+    ops.reset_launch_counts()
+    for b, S, hq, hkv, hd, length, window in DECODE_SHAPES:
+        q, k, v = (torch.from_numpy(a).to("cuda", td) for a in
+                   decode_inputs(b, S, hq, hkv, hd, seed=S))
+        got = ops.decode_attention(q, k, v, length, window=window)
+        qs = (q * hd ** -0.5).to(td).transpose(1, 2)
+        want = fd.flash_decode_plain(qs, k.transpose(1, 2), v.transpose(1, 2),
+                                     length, window=window).transpose(1, 2)
+        close(got.cpu(), want.cpu().float().numpy(), TOL[dtype])
+    assert ops.launch_counts()["flash_decode"] == len(DECODE_SHAPES)
