@@ -14,8 +14,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    tolerance; then the kernel's time at each main path's shape beside its
    plain version's, one library call's (a yardstick only: the port never
    calls it) and the card's bound for the same work;
-   K3 (flash decode) is also replayed from one CUDA graph at three
-   lengths, written into its length tensor in place;
+   every K1 and K3 check launches twice and requires the same bits, and
+   each wrapper must refuse a view off 16-byte alignment; K3 (flash
+   decode) is also replayed from one CUDA graph at three lengths, written
+   into its length tensor in place, twice each with the same bits (its
+   arrival counters are back at 0 after every launch);
 4. an end-to-end check on a small input per main path: the port's model
    forward on the card (kernels) against the same weights on the CPU
    (plain versions), at the arch's full widths; and the same for serving:
@@ -56,7 +59,8 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py TOL
 TOL_LSE = 1e-4  # float32 log-sum-exp of either input dtype
 #: (atol, rtol) of the SSD checks in tests/test_kernels.py
 TOL_SSD = {"float32": (5e-4, 1e-5), "bfloat16": (6e-2, 3e-2)}
-#: (b, sq, hq, hkv, hd, window): the main paths, then tests/test_kernels.py
+#: (b, sq, hq, hkv, hd, window): the main paths, then tests/test_kernels.py,
+#: then every head dim at a ragged sq (not a multiple of 64 or 128)
 ATTN_SHAPES = [
     (1, 2048, 16, 16, 96, 0),
     (1, 2048, 32, 32, 64, 0),
@@ -65,6 +69,10 @@ ATTN_SHAPES = [
     (1, 384, 8, 1, 128, 0),
     (2, 160, 4, 4, 64, 64),
     (1, 96, 4, 2, 32, 0),
+    (1, 1000, 8, 2, 96, 0),
+    (2, 333, 4, 4, 128, 0),
+    (1, 777, 4, 1, 32, 256),
+    (1, 1100, 4, 4, 64, 300),
 ]
 #: (b, s, nh, hd, ds, chunk): the zamba2 path, then tests/test_kernels.py
 SSD_SHAPES = [
@@ -128,14 +136,18 @@ def time_ms(fn, arg_sets, iters: int = 20, reps: int = 3) -> float:
     """Device ms per call: ``iters`` calls cycling through ``arg_sets``
     (distinct inputs, so a call does not find the previous one's in L2) are
     captured in a CUDA graph and replayed ``reps`` times between two
-    events, so the host's launch cost is not in the number."""
+    events, so the host's launch cost is not in the number.  Warm-up and
+    capture share one stream (K3's arrival counters are per stream)."""
     import torch
 
-    for a in arg_sets:  # compile, autotune, warm the allocator
-        fn(*a)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in arg_sets:  # compile, autotune, warm the allocator
+            fn(*a)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
     graph.replay()
@@ -162,6 +174,24 @@ def check_close(name, got, want, tol, rtol=None) -> float:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max |err| {err:.3e} > {tol:g})")
     return err
+
+
+def same_bits(name, got, want) -> None:
+    """Two launches on the same inputs must give the same bits."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: the bits differ from the first")
+    print(f"  {name}: bit-identical")
+
+
+def expect_raise(name, fn, exc) -> None:
+    try:
+        fn()
+    except exc as e:
+        print(f"  {name}: raises {type(e).__name__} ({str(e)[:60]}...)")
+        return
+    raise AssertionError(f"{name}: did not raise {exc.__name__}")
 
 
 def bound(flops, peak_flops, nbytes):
@@ -215,6 +245,18 @@ def phase_attention(record):
                   f"hd{shape[4]} w{window} {dn}"
             errs[shape, dn] = check_close(f"{tag} out", out, want, TOL[dn])
             check_close(f"{tag} lse", lse, want_lse, TOL_LSE)
+            again, lse2 = fa.flash_attention_fwd(q, k, v, causal=True,
+                                                 window=window)
+            same_bits(f"{tag} second launch", (out, lse), (again, lse2))
+    # the bf16 kernel's 16-byte copies refuse a view off 16-byte alignment
+    b, sq, hq, hkv, hd, _ = ATTN_SHAPES[0]
+    q, k, v = attention_inputs(ATTN_SHAPES[0], torch.bfloat16, seed=1)
+    wide = torch.zeros((b, sq, hq, hd + 8), dtype=torch.bfloat16,
+                       device="cuda")
+    off = wide[..., 4:4 + hd].transpose(1, 2)  # 8 bytes past alignment
+    off.copy_(q)
+    expect_raise("K1 on a misaligned q view",
+                 lambda: fa.flash_attention_fwd(off, k, v), ValueError)
     timings = []
     for path, shapes in PATH_SHAPES.items():
         for shape in shapes["attn"]:
@@ -394,7 +436,8 @@ def decode_inputs(shape, dtype, seed):
 def phase_decode(record):
     """K3 against its plain version on the same inputs (the wrapper the
     model calls, ``ops.decode_attention``), one CUDA graph replayed at
-    three lengths, then its time at the serve shape."""
+    three lengths, calls on two streams at once, then its time at the serve
+    shape."""
     import torch
     import torch.nn.functional as F
 
@@ -412,19 +455,34 @@ def phase_decode(record):
             got = ops.decode_attention(q, k, v, length, window=window)
             torch.cuda.synchronize()
             want = fd.flash_decode_plain(qs, kt, vt, length, window=window)
-            errs[shape, dn] = check_close(
-                f"b{b} S{S} hq{hq} hkv{hkv} hd{hd} length{length} "
-                f"w{window} {dn}", got, want.transpose(1, 2), TOL[dn])
+            tag = (f"b{b} S{S} hq{hq} hkv{hkv} hd{hd} length{length} "
+                   f"w{window} {dn}")
+            errs[shape, dn] = check_close(tag, got, want.transpose(1, 2),
+                                          TOL[dn])
+            same_bits(f"{tag} second launch", (got,),
+                      (ops.decode_attention(q, k, v, length, window=window),))
+    (q, k, v), (qs, kt, vt) = decode_inputs(DECODE_SHAPES[0], torch.bfloat16,
+                                            seed=1)
+    wide = torch.zeros(q.shape[:-1] + (q.shape[-1] + 8,), dtype=q.dtype,
+                       device="cuda")
+    off = wide[..., 4:4 + q.shape[-1]].transpose(1, 2)  # 8 bytes off
+    off.copy_(qs)
+    expect_raise("K3 on a misaligned q view",
+                 lambda: fd.flash_decode(off, kt, vt, DECODE_SHAPES[0][5]),
+                 ValueError)
 
     # tests/test_kernels.py::test_decode_length_is_dynamic on the card: one
     # captured launch sequence serves every length written into the tensor
     shape = (1, 256, 4, 2, 32, 256, 0)
     (q, k, v), (qs, kt, vt) = decode_inputs(shape, torch.float32, seed=3)
     len_t = torch.full((1,), 256, dtype=torch.int32, device="cuda")
-    fd.flash_decode(qs, kt, vt, len_t)
+    side = torch.cuda.Stream()  # warm-up on the capture stream: its counters
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fd.flash_decode(qs, kt, vt, len_t)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         out = fd.flash_decode(qs, kt, vt, len_t)
     for length in (1, 100, 256):
         len_t.fill_(length)
@@ -434,9 +492,34 @@ def phase_decode(record):
         check_close(f"one graph, length {length} vs decode_ref",
                     out.transpose(1, 2), ref.decode_ref(q, k, v, lengths),
                     TOL["float32"])
+        # a replay that finds its arrival counters left at 0 merges again
+        first = out.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        same_bits(f"one graph, length {length}, second replay", (out,),
+                  (first,))
+
+    # calls on two streams at once take separate arrival counters: each
+    # gives the bits of the same call alone
+    shape = DECODE_SHAPES[0]
+    length = shape[5]
+    _, (qs, kt, vt) = decode_inputs(shape, torch.bfloat16, seed=5)
+    alone = fd.flash_decode(qs, kt, vt, length)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(50):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(fd.flash_decode(qs, kt, vt, length))
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    same_bits(f"{len(outs)} calls interleaved on two streams", outs,
+              (alone,) * len(outs))
 
     timings = []
-    shape = DECODE_SHAPES[0]
     b, S, hq, hkv, hd, length, _ = shape
     per_set = 2 * b * S * hkv * hd * 2
     sets = [decode_inputs(shape, torch.bfloat16, seed=i)[1]

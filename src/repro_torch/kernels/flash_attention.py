@@ -8,12 +8,19 @@ positions ``arange(sq)``, causal and/or sliding-window masking, query head
 ``h`` reads kv head ``h // (hq // hkv)``.  It also returns the row
 log-sum-exp ``lse`` (float32 ``[b, hq, sq]``) for the backward.
 
-Bound on the H100: causal training attention is compute-bound (about
-``2*b*hq*sq^2*hd`` FLOPs on ``O(b*h*s*hd)`` bytes), so the floor is the
-bf16 tensor-core rate.  The kernel keeps the whole online softmax on chip
-(no ``sq x sk`` matrix in device memory) and skips tiles above the diagonal
-or outside the window; its products are scalar float32 FMAs, so it sits
-well above that floor (see PERF.md).
+Bound on the H100: operations.  Causal training attention does
+``2*b*hq*sq^2*hd`` FLOP on ``O(b*h*s*hd)`` bytes, so the floor is that
+count over the bf16 tensor-core rate, 989 TFLOP/s.  For bfloat16 (the main
+path) the kernel runs both products on the tensor cores (``mma.sync``
+m16n8k16, bf16 in, float32 accumulate, ``ldmatrix`` fragments), keeps K
+and V tiles as bf16 in shared memory filled by 16-byte ``cp.async`` copies
+in a 2-stage ring, keeps the online softmax in float32 registers (no ``sq
+x sk`` matrix in device memory), skips tiles above the diagonal or outside
+the window, and launches the longest causal query tiles first.  Its
+16-byte copies need every pointer 16-byte aligned and the batch, head and
+seq strides of q, k, v and the output multiples of 8 elements; the wrapper
+raises otherwise.  float32 runs a scalar kernel (float32 FMAs), which keeps
+the float32 checks' tolerance that TF32 tensor cores could not meet.
 """
 from __future__ import annotations
 
@@ -87,6 +94,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError("flash_attention_fwd: q, k, v on different devices")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention_fwd: head_dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_aligned16(q, k, v)
     buf = torch.empty((b, sq, hq, hd), dtype=q.dtype, device=q.device)
     out = buf.transpose(1, 2)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -104,6 +113,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     _build.check(lib, err, "flash_attention_fwd launch")
     COUNTER.add()
     return out, lse
+
+
+def _check_aligned16(*tensors):
+    """The bf16 kernel's 16-byte copies: every pointer 16-byte aligned, the
+    batch, head and seq strides multiples of 8 elements (the output buffer
+    the wrapper allocates is, for every head dim the kernel takes)."""
+    for t in tensors:
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(
+                f"flash_attention_fwd: the bf16 kernel copies 16-byte rows; "
+                f"a view at offset {t.data_ptr() % 16} B from 16-byte "
+                f"alignment with strides {t.stride()} is not taken (strides "
+                f"of batch, head and seq must be multiples of 8)")
 
 
 def _lib():

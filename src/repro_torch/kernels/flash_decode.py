@@ -13,14 +13,23 @@ is 4 FLOPs per K/V element read, so the floor is the valid part of K and V
 read once over 3.35 TB/s.  The kernel splits the keys over blocks
 (flash-decoding) so that a decode step with ``b * hkv`` far below the SM
 count still fills the card, reads each K/V row once per kv head (not once
-per query head), and merges the splits' float32 partials in a second,
-deterministic pass.  The split count comes from ``S`` and the SM count,
-never from ``length``, and ``length`` is read on the device: one launch
-sequence, or one CUDA graph, serves every length without a host sync.
+per query head) with 16-byte ``cp.async`` copies into a 2-stage ring, and
+merges the splits' float32 partials in the same launch: the last split
+block of each (batch row, kv head) to arrive, counted by an int32 arrival
+counter, merges all of them in split index order, so the result does not
+depend on the arrival order.  The split count comes from ``S`` and the SM
+count, never from ``length``, and ``length`` is read on the device: one
+launch, or one CUDA graph, serves every length without a host sync.
 
-The caches may be any strided view with a contiguous head_dim axis (the
+The caches may be any strided view with a contiguous head_dim axis whose
+other strides are multiples of 16 bytes, on 16-byte aligned storage (the
 model passes ``[b, S, hkv, hd]`` storage transposed), so no call copies a
-cache.
+cache.  The arrival counters are cached per device, stream and ``b *
+hkv``, zeroed once, and left at zero by every launch: calls that share
+them run in the order of their stream, so calls on two streams never mix
+their tickets.  A CUDA graph keeps the counters of the stream it was
+captured on; warm up on that stream before the capture, and do not call
+the kernel there outside the graph while the graph replays elsewhere.
 """
 from __future__ import annotations
 
@@ -41,6 +50,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (device index, length) -> int32 device scalar, for lengths given as ints
 #: (the ``dec`` branch's static ``enc_len``); never written after creation
 _LENGTHS: dict[tuple[int, int], torch.Tensor] = {}
+#: (device index, stream, b * hkv) -> the kernel's int32 arrival counters,
+#: zeroed once; every launch leaves them at zero
+_COUNTERS: dict[tuple[int, int, int], torch.Tensor] = {}
 
 
 def flash_decode_plain(q, k_cache, v_cache, length, *, window: int = 0):
@@ -70,7 +82,7 @@ def flash_decode_plain(q, k_cache, v_cache, length, *, window: int = 0):
 
 def split_plan(S: int, b: int, hkv: int, sm_count: int) -> tuple[int, int]:
     """(splits, tiles per split) of a cache of capacity ``S``: about two
-    pass-1 blocks per SM, whole 64-key tiles per split, at most one split
+    blocks per SM, whole 64-key tiles per split, at most one split
     per tile.  Independent of the valid length."""
     tiles = math.ceil(S / TILE)
     want = min(tiles, max(1, math.ceil(2 * sm_count / (b * hkv))))
@@ -108,6 +120,23 @@ def _length_tensor(length, device: torch.device) -> torch.Tensor:
     return t
 
 
+def _counters(n: int, device: torch.device, stream: int) -> torch.Tensor:
+    """The arrival counters of ``n`` (batch row, kv head) pairs for calls
+    on ``stream``: one set per stream, so that only calls in one stream's
+    order share them."""
+    key = (device.index, stream, n)
+    t = _COUNTERS.get(key)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "flash_decode: first call for this batch and kv-head count "
+                "on this stream inside a CUDA graph capture; call once on "
+                "the capture stream outside the capture")
+        t = torch.zeros((n,), dtype=torch.int32, device=device)
+        _COUNTERS[key] = t
+    return t
+
+
 def flash_decode(q, k_cache, v_cache, length, *, window: int = 0):
     """K3.  q: [b, hq, 1, hd] (pre-scaled); caches: [b, hkv, S, hd], any
     strides with a contiguous head_dim axis; length: an int or an int32
@@ -141,6 +170,14 @@ def flash_decode(q, k_cache, v_cache, length, *, window: int = 0):
         raise ValueError("flash_decode: q and caches on different devices")
     if q.stride(-1) != 1 or k_cache.stride(-1) != 1 or v_cache.stride(-1) != 1:
         raise ValueError("flash_decode: head_dim must be contiguous")
+    vec = 16 // q.element_size()
+    for name, t, n in (("q", q, 2), ("k_cache", k_cache, 3),
+                       ("v_cache", v_cache, 3)):
+        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:n]):
+            raise ValueError(
+                f"flash_decode: the kernel copies 16-byte rows; {name} at "
+                f"offset {t.data_ptr() % 16} B from 16-byte alignment with "
+                f"strides {t.stride()} is not taken")
     len_t = _length_tensor(length, q.device)
     splits, per_split = split_plan(S, b, hkv, _sm_count(q.device.index))
     out = torch.empty((b, 1, hq, hd), dtype=q.dtype,
@@ -154,13 +191,14 @@ def flash_decode(q, k_cache, v_cache, length, *, window: int = 0):
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         out.stride(0), out.stride(1))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _lib()
     err = lib.repro_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         len_t.data_ptr(), out.data_ptr(), ws_acc.data_ptr(),
-        ws_ml.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, S, hd, splits,
-        per_split, strides, int(window), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        ws_ml.data_ptr(), _counters(b * hkv, q.device, stream).data_ptr(),
+        _DTYPES[q.dtype], b, hq, hkv, S, hd, splits,
+        per_split, strides, int(window), q.device.index, stream)
     _build.check(lib, err, "flash_decode launch")
     COUNTER.add()
     return out
@@ -171,7 +209,7 @@ def _lib():
     fn = lib.repro_flash_decode
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                        ctypes.POINTER(ctypes.c_longlong), I, I, P]
         fn.restype = I
     return lib

@@ -36,8 +36,7 @@ DEFAULT_SERVE_ARGS = ["--arch", "seamless-m4t-large-v2", "--full-size",
 #: (category, substrings of the kernel name), first match wins
 CATEGORIES = (
     ("K1 flash_attention_fwd", ("flash_fwd_kernel",)),
-    ("K3 flash_decode", ("flash_decode_split_kernel",
-                         "flash_decode_combine_kernel")),
+    ("K3 flash_decode", ("flash_decode_kernel",)),
     ("K2 rmsnorm", ("_rmsnorm_kernel",)),
     ("K4 ssd_scan", ("ssd_scan_kernel",)),
     ("matmul float32 (no tensor cores)", ("f32f32", "sgemm")),

@@ -7,6 +7,9 @@ the gradients).  Inputs come from numpy seeds and go to both.  Tolerances:
 float32 2e-5 (``TOL`` of tests/test_kernels.py), bfloat16 2e-2.  The CUDA
 and Triton kernels themselves run only on the card (marker ``cuda``).
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_fwd as jflash_fwd
 from repro.models import layers as jlayers
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
@@ -117,6 +121,147 @@ def test_flash_attention_grad_matches_jax_grad(b, sq, hq, hkv, hd, window):
         close(g, w, TOL["float32"])
 
 
+# K1's tensor-core kernel (bf16): its tile plan and its arithmetic, mirrored
+# in Python.  These tests check the design as the source states it (the
+# tile constants below are read from the source), not the built binary:
+# only the card's comparison with the plain version checks the kernel.
+_K1_TC = (Path(fa.__file__).parent / "csrc" / "flash_attention.cu"
+          ).read_text().split("namespace tc {", 1)[1]
+#: keys per tile (``tc::BLOCK_N``)
+K1_BLOCK_N = int(re.search(r"constexpr int BLOCK_N = (\d+);", _K1_TC)[1])
+#: ``tc::block_m``: (largest hd of the first value, first, second value)
+K1_BLOCK_M_RULE = tuple(map(int, re.search(
+    r"return HD <= (\d+) \? (\d+) : (\d+);", _K1_TC).groups()))
+#: the training shapes of the main paths: gpt3 (hd 96) and zamba2 (hd 64)
+TRAIN_SHAPES = [(1, 2048, 16, 16, 96, 0), (1, 2048, 32, 32, 64, 0)]
+
+
+def test_k1_plan_tests_cover_the_kernels_block_m():
+    """The plan and arithmetic tests run BLOCK_M 64 and 128: the values
+    that the source's ``tc::block_m`` takes at every head dim of K1."""
+    limit, small, large = K1_BLOCK_M_RULE
+    used = {small if hd <= limit else large for hd in fa.HEAD_DIMS}
+    assert used <= {64, 128}
+
+
+def k1_plan(sq, sk, window, block_m, causal=True):
+    """The bf16 kernel's blocks of one (head, batch row) in launch order
+    (``blockIdx.z``), each as (first query row, the key tiles it visits):
+    heaviest first, and only tiles that can hold an unmasked entry."""
+    nq = -(-sq // block_m)
+    plan = []
+    for z in range(nq):
+        m0 = (nq - 1 - z) * block_m
+        n_end = min(sk, m0 + block_m) if causal else sk
+        first = m0 - window + 1
+        n_begin = (first // K1_BLOCK_N * K1_BLOCK_N
+                   if window > 0 and first > 0 else 0)
+        plan.append((m0, list(range(n_begin, n_end, K1_BLOCK_N))))
+    return plan
+
+
+def k1_warp_flags(m0, n0, sk, window, block_m, warp, causal=True):
+    """(idle, edge) of one of the 4 warps on a key tile: idle skips the
+    tile, edge evaluates the mask (the kernel's predicates)."""
+    wr0 = m0 + warp * block_m // 4
+    wr1 = wr0 + block_m // 4 - 1
+    idle = ((causal and n0 > wr1)
+            or (window > 0 and n0 + K1_BLOCK_N - 1 <= wr0 - window))
+    edge = (n0 + K1_BLOCK_N > sk or (causal and n0 + K1_BLOCK_N - 1 > wr0)
+            or (window > 0 and wr1 - n0 >= window))
+    return idle, edge
+
+
+def k1_valid(sq, sk, window, causal=True):
+    qp, kp = np.arange(sq)[:, None], np.arange(sk)[None]
+    valid = np.ones((sq, sk), bool)
+    if causal:
+        valid &= qp >= kp
+    if window > 0:
+        valid &= qp - kp < window
+    return valid
+
+
+@pytest.mark.parametrize("block_m", [64, 128])
+@pytest.mark.parametrize("b,sq,hq,hkv,hd,window", SHAPES + TRAIN_SHAPES)
+def test_k1_tile_plan_covers_every_unmasked_pair_once(b, sq, hq, hkv, hd,
+                                                      window, block_m):
+    valid = k1_valid(sq, sq, window)
+    seen = np.zeros((sq, sq), np.int32)
+    plan = k1_plan(sq, sq, window, block_m)
+    for m0, tiles in plan:
+        rows = slice(m0, min(sq, m0 + block_m))
+        for n0 in tiles:
+            keys = slice(n0, min(sq, n0 + K1_BLOCK_N))
+            assert valid[rows, keys].any(), (m0, n0)  # no fully masked tile
+            seen[rows, keys] += 1
+            for warp in range(4):
+                idle, edge = k1_warp_flags(m0, n0, sq, window, block_m, warp)
+                w0 = m0 + warp * block_m // 4
+                wv = valid[w0:min(sq, w0 + block_m // 4), keys]
+                if idle:
+                    assert not wv.any(), (m0, n0, warp)
+                elif not edge:  # unmasked: every pair of a full tile valid
+                    assert n0 + K1_BLOCK_N <= sq and wv.all(), (m0, n0, warp)
+    assert (seen[valid] == 1).all() and seen.max() <= 1
+    assert [m0 for m0, _ in plan] == sorted((m0 for m0, _ in plan),
+                                            reverse=True)
+    if window == 0:  # causal: the longest rows go out first
+        work = [len(t) for _, t in plan]
+        assert work == sorted(work, reverse=True)
+
+
+def k1_bf16_emulation(q, k, v, window, block_m):
+    """The bf16 kernel's arithmetic on the CPU, block by block of its plan:
+    S in float32 from the bf16 products, masked on edge tiles, running row
+    max; p = exp(s - m) in float32, l summed from the unrounded p, P
+    rounded to bf16 before P.V; out = acc / l rounded to bf16, lse = m +
+    log l.  q [b, hq, sq, hd] pre-scaled, k, v [b, hkv, sk, hd], bf16."""
+    b, hq, sq, hd = q.shape
+    g, sk = hq // k.shape[1], k.shape[2]
+    valid = torch.from_numpy(k1_valid(sq, sk, window))
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(g, 1) for t in (k, v))
+    out = torch.empty(q.shape, dtype=torch.bfloat16)
+    lse = torch.empty((b, hq, sq))
+    for m0, tiles in k1_plan(sq, sk, window, block_m):
+        r = slice(m0, min(sq, m0 + block_m))
+        m = torch.full((b, hq, r.stop - m0, 1), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hq, r.stop - m0, hd))
+        for n0 in tiles:
+            c = slice(n0, min(sk, n0 + K1_BLOCK_N))
+            s = qf[:, :, r] @ kf[:, :, c].transpose(-1, -2)
+            s = torch.where(valid[r, c], s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.where(valid[r, c], torch.exp(s - m_new), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.bfloat16().float() @ vf[:, :, c]
+            m = m_new
+        l = l.clamp_min(1e-30)
+        out[:, :, r] = (acc / l).bfloat16()
+        lse[:, :, r] = (m + torch.log(l))[..., 0]
+    return out, lse
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv,hd,window", SHAPES)
+def test_k1_bf16_arithmetic_matches_pallas_interpret(b, sq, hq, hkv, hd,
+                                                     window):
+    """P rounded to bf16 before P.V (the kernel's one extra rounding) stays
+    within the bf16 tolerance of the Pallas kernel, for either BLOCK_M."""
+    qn, kn, vn = attn_inputs(b, sq, hq, hkv, hd, seed=sq * 3 + hd)
+    qn = qn * np.float32(hd ** -0.5)
+    (qj, qt), (kj, kt), (vj, vt) = (both(a.transpose(0, 2, 1, 3).copy(),
+                                         "bfloat16") for a in (qn, kn, vn))
+    want = jflash_fwd(qj, kj, vj, causal=True, window=window, interpret=True)
+    _, want_lse = fa.flash_attention_fwd_plain(qt, kt, vt, window=window)
+    for block_m in (64, 128):
+        out, lse = k1_bf16_emulation(qt, kt, vt, window, block_m)
+        close(out, want, TOL["bfloat16"])
+        close(lse, want_lse.numpy(), 1e-4)
+
+
 def test_plain_attention_matches_oracle():
     qn, kn, vn = attn_inputs(2, 200, 8, 2, 64, seed=0)
     q, k, v = (torch.from_numpy(a) for a in (qn, kn, vn))
@@ -211,11 +356,15 @@ def test_decode_ref_matches_reference_with_per_row_lengths(window):
     close(got, want, TOL["float32"])
 
 
-def split_kv_emulation(q, k, v, length, window, sm_count):
-    """flash_decode.cu's two passes in PyTorch, for one split plan: pass 1
-    walks each split's 64-key tiles (skipping those outside the valid
-    range) keeping a running (m, l, acc); pass 2 merges the splits that saw
-    a key.  q: [b, hq, 1, hd] pre-scaled; caches [b, hkv, S, hd]."""
+def split_kv_emulation(q, k, v, length, window, sm_count, arrival=None):
+    """flash_decode.cu in PyTorch, for one split plan.  Each split block
+    walks its 64-key tiles (skipping those outside the valid range) keeping
+    a running (m, l, acc), writes it to the workspace and takes a ticket
+    from its arrival counter; the block that takes the last ticket merges
+    the workspace in split index order (only splits that saw a key) and
+    resets the counter.  ``arrival``: the order in which the split blocks
+    finish (index order by default).  q: [b, hq, 1, hd] pre-scaled; caches
+    [b, hkv, S, hd]."""
     b, hq, _, hd = q.shape
     hkv, S = k.shape[1], k.shape[2]
     splits, per = fd.split_plan(S, b, hkv, sm_count)
@@ -223,10 +372,14 @@ def split_kv_emulation(q, k, v, length, window, sm_count):
     length = min(max(length, 0), S)
     lo = max(0, length - window) if window > 0 else 0
     qg = q[:, :, 0].reshape(b, hkv, hq // hkv, hd)
-    m = torch.full((b, hkv, hq // hkv, splits), -1e30)
-    l = torch.zeros_like(m)
-    acc = torch.zeros(m.shape + (hd,))
-    for sp in range(splits):
+    ws_m = torch.empty((b, hkv, hq // hkv, splits))
+    ws_l = torch.empty_like(ws_m)
+    ws_acc = torch.empty(ws_m.shape + (hd,))
+    counter, out = 0, None
+    for sp in range(splits) if arrival is None else arrival:
+        m = torch.full((b, hkv, hq // hkv), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(m.shape + (hd,))
         for n0 in range(sp * per * fd.TILE, min(S, (sp + 1) * per * fd.TILE),
                         fd.TILE):
             if n0 >= length or n0 + fd.TILE <= lo:
@@ -235,19 +388,24 @@ def split_kv_emulation(q, k, v, length, window, sm_count):
             valid = (kp >= lo) & (kp < length)
             s = torch.einsum("bkgd,bkjd->bkgj", qg, k[:, :, kp])
             s = torch.where(valid, s, -1e30)
-            m_new = torch.maximum(m[..., sp], s.amax(-1))
+            m_new = torch.maximum(m, s.amax(-1))
             p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
-            corr = torch.exp(m[..., sp] - m_new)
-            l[..., sp] = l[..., sp] * corr + p.sum(-1)
-            acc[..., sp, :] = (acc[..., sp, :] * corr[..., None]
-                               + torch.einsum("bkgj,bkjd->bkgd", p,
-                                              v[:, :, kp]))
-            m[..., sp] = m_new
-    seen = l > 0
-    mx = torch.where(seen, m, -1e30).amax(-1, keepdim=True)
-    w = torch.where(seen, torch.exp(m - mx), 0.0)
-    out = (w[..., None] * acc).sum(-2) / (w * l).sum(-1, keepdim=True).clamp_min(
-        1e-30)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = (acc * corr[..., None]
+                   + torch.einsum("bkgj,bkjd->bkgd", p, v[:, :, kp]))
+            m = m_new
+        ws_m[..., sp], ws_l[..., sp], ws_acc[..., sp, :] = m, l, acc
+        ticket, counter = counter, counter + 1
+        if ticket == splits - 1:  # the last to arrive merges, in index order
+            assert out is None
+            seen = ws_l > 0
+            mx = torch.where(seen, ws_m, -1e30).amax(-1, keepdim=True)
+            w = torch.where(seen, torch.exp(ws_m - mx), 0.0)
+            out = (w[..., None] * ws_acc).sum(-2) / (w * ws_l).sum(
+                -1, keepdim=True).clamp_min(1e-30)
+            counter = 0  # ready for the next launch
+    assert out is not None and counter == 0
     return out.reshape(b, hq, 1, hd)
 
 
@@ -266,6 +424,27 @@ def test_split_kv_plan_and_merge_match_plain_version(b, S, hq, hkv, hd,
     for sm_count in (132, 1):
         close(split_kv_emulation(q, k, v, length, window, sm_count),
               want.numpy(), TOL["float32"])
+
+
+@pytest.mark.parametrize("b,S,hq,hkv,hd,length,window", [
+    (1, 1024, 16, 16, 64, 1024, 0),   # the seamless serve shape
+    (1, 1024, 16, 16, 64, 700, 100),  # empty splits among full ones
+    (2, 300, 8, 2, 64, 157, 0),
+])
+def test_split_kv_merge_is_independent_of_arrival_order(b, S, hq, hkv, hd,
+                                                        length, window):
+    """Whichever split block arrives last, it merges the workspace in split
+    index order: the bits do not depend on the order of arrival."""
+    qn, kn, vn = decode_inputs(b, S, hq, hkv, hd, seed=length + 1)
+    q = torch.from_numpy(qn).transpose(1, 2) * hd ** -0.5
+    k, v = (torch.from_numpy(a).transpose(1, 2) for a in (kn, vn))
+    splits = fd.split_plan(S, b, hkv, 132)[0]
+    first = split_kv_emulation(q, k, v, length, window, 132)
+    rng = np.random.default_rng(S)
+    for order in (range(splits - 1, -1, -1), rng.permutation(splits),
+                  rng.permutation(splits)):
+        assert torch.equal(split_kv_emulation(q, k, v, length, window, 132,
+                                              arrival=list(order)), first)
 
 
 def test_split_plan_fills_the_card_from_capacity_alone():
@@ -324,7 +503,8 @@ def test_kernels_match_plain_versions_on_card(dtype):
                     "CPU mode (chip_smoke.py runs them on the card)")
     td = DTYPES[dtype][1]
     ops.reset_launch_counts()
-    for b, sq, hq, hkv, hd, window in SHAPES:
+    shapes = SHAPES + TRAIN_SHAPES  # every head dim: 64, 128, 32, 96
+    for b, sq, hq, hkv, hd, window in shapes:
         qn, kn, vn = attn_inputs(b, sq, hq, hkv, hd, seed=1)
         q, k, v = (torch.from_numpy(a).to("cuda", td).transpose(1, 2)
                    for a in (qn, kn, vn))
@@ -332,11 +512,13 @@ def test_kernels_match_plain_versions_on_card(dtype):
         want, want_lse = fa.flash_attention_fwd_plain(q, k, v, window=window)
         close(out.cpu(), want.cpu().float().numpy(), TOL[dtype])
         close(lse.cpu(), want_lse.cpu().numpy(), 1e-4)
+        again, lse2 = fa.flash_attention_fwd(q, k, v, window=window)
+        assert torch.equal(again, out) and torch.equal(lse2, lse)
     x = torch.randn(2048, 1536, device="cuda").to(td)
     s = torch.randn(1536, device="cuda").to(td) * 0.1
     close(rn.rmsnorm(x, s).cpu(), rn.rmsnorm_plain(x, s).cpu().float().numpy(),
           TOL[dtype])
-    assert ops.launch_counts() == {"flash_attention_fwd": len(SHAPES),
+    assert ops.launch_counts() == {"flash_attention_fwd": 2 * len(shapes),
                                    "rmsnorm": 1, "flash_decode": 0,
                                    "ssd_scan": 0}
 
@@ -357,4 +539,37 @@ def test_flash_decode_kernel_matches_plain_version_on_card(dtype):
         want = fd.flash_decode_plain(qs, k.transpose(1, 2), v.transpose(1, 2),
                                      length, window=window).transpose(1, 2)
         close(got.cpu(), want.cpu().float().numpy(), TOL[dtype])
-    assert ops.launch_counts()["flash_decode"] == len(DECODE_SHAPES)
+        assert torch.equal(ops.decode_attention(q, k, v, length,
+                                                window=window), got)
+    assert ops.launch_counts()["flash_decode"] == 2 * len(DECODE_SHAPES)
+
+
+@pytest.mark.cuda
+def test_flash_decode_calls_on_two_streams_keep_their_own_counters():
+    """Calls with the same batch and kv-head count in flight on two streams
+    at once take separate arrival counters, so each gives the bits of the
+    same call alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode "
+                    "(chip_smoke.py runs it on the card)")
+    b, S, hq, hkv, hd, length, window = DECODE_SHAPES[0]
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in
+               decode_inputs(b, S, hq, hkv, hd, seed=S))
+    qs = (q * hd ** -0.5).to(torch.bfloat16).transpose(1, 2)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    alone = fd.flash_decode(qs, kt, vt, length, window=window)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(50):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(fd.flash_decode(qs, kt, vt, length,
+                                            window=window))
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, alone) for o in outs)
+    used = {key[1] for key in fd._COUNTERS if key[2] == b * hkv}
+    assert {s.cuda_stream for s in streams} <= used
