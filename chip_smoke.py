@@ -14,8 +14,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    tolerance; then the kernel's time at each main path's shape beside its
    plain version's, one library call's (a yardstick only: the port never
    calls it) and the card's bound for the same work;
-   every K1 and K3 check launches twice and requires the same bits, and
-   each wrapper must refuse a view off 16-byte alignment; K3 (flash
+   every K1, K3 and K4 check launches twice and requires the same bits,
+   and each of their wrappers must refuse a view off 16-byte alignment
+   (K4's bf16 kernel; its float32 kernel is the scalar one); K3 (flash
    decode) is also replayed from one CUDA graph at three lengths, written
    into its length tensor in place, twice each with the same bits (its
    arrival counters are back at 0 after every launch);
@@ -362,13 +363,18 @@ def ssd_inputs(shape, dtype, bc_dtype, seed):
 def phase_ssd(record):
     """K4 against its plain version run on float32 copies of the same
     inputs and cast back (the Pallas kernel's float32 arithmetic), and at
-    the reference tests' shapes also against the sequential oracle."""
+    the reference tests' shapes also against the sequential oracle.  bf16
+    x takes the tensor-core kernel (float32 B and C cast to bf16 by the
+    wrapper), float32 x the scalar one; every check launches twice and
+    requires the same bits, and the bf16 kernel must refuse a view off
+    16-byte alignment."""
     import torch
 
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as ssd
 
-    print("K4 ssd_scan (CUDA) vs its plain version:")
+    print("K4 ssd_scan (CUDA; bf16: tensor cores, float32: scalar) vs its "
+          "plain version:")
     errs = {}
     for shape in SSD_SHAPES:
         chunk = shape[5]
@@ -390,6 +396,19 @@ def phase_ssd(record):
             if not main:
                 check_close(f"{tag} vs ssd_ref", got,
                             ref.ssd_ref(x, dt, A, B, C, D), atol, rtol)
+            same_bits(f"{tag} second launch", (got,),
+                      (ops.ssd(x, dt, A, B, C, D, chunk=chunk),))
+    # the bf16 kernel's 16-byte copies refuse a view off 16-byte alignment
+    b, s, nh, hd, ds, chunk = SSD_SHAPES[0]
+    x, dt, A, B, C, D = ssd_inputs(SSD_SHAPES[0], torch.bfloat16,
+                                   torch.bfloat16, seed=1)
+    wide = torch.zeros((b, s, nh * hd + 8), dtype=torch.bfloat16,
+                       device="cuda")
+    off = wide[..., 4:4 + nh * hd].reshape(b, s, nh, hd)  # 8 bytes off
+    off.copy_(x)
+    expect_raise("K4 on a misaligned x view",
+                 lambda: ssd.ssd_scan(off, dt, A, B, C, D, chunk=chunk),
+                 ValueError)
     timings = []
     for shape in PATH_SHAPES["zamba2-1.2b"]["ssd"]:
         b, s, nh, hd, ds, chunk = shape
@@ -408,7 +427,9 @@ def phase_ssd(record):
         print(f"  zamba2-1.2b shape {shape} bf16: kernel {ms:.4f} ms  plain "
               f"{plain_ms:.4f} ms  library: none  bound {bound_ms:.4f} ms "
               f"({bound_by}: {nbytes:.4g} B / 3.35 TB/s, {flops:.4g} FLOP / "
-              f"989 TFLOP/s)")
+              f"989 TFLOP/s); achieved {nbytes / ms * 1e-9:.4g} TB/s, "
+              f"{flops / ms * 1e-9:.4g} TFLOP/s, {bound_ms / ms:.1%} of the "
+              f"bound")
         timings.append({"path": "zamba2-1.2b", "shape": list(shape),
                         "max_abs_err": errs[shape, "bfloat16"], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,

@@ -1,26 +1,36 @@
 """Mamba-2 chunked SSD scan (kernel K4): CUDA launcher, plain version, counter.
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py`` (``ssd_scan`` /
-``_kernel``) with the hand-written Hopper kernel in ``csrc/ssd_scan.cu``.
+``_kernel``) with the hand-written Hopper kernels in ``csrc/ssd_scan.cu``.
 Contract as in the reference: x ``[b, s, nh, hd]`` in the model dtype, dt
 ``[b, s, nh]`` float32, A and D ``[nh]`` float32, B and C ``[b, s, ds]``;
 ``s`` a multiple of ``chunk`` (``ops.ssd`` pads).  Returns y ``[b, s, nh,
-hd]`` in x's dtype; all arithmetic is float32, per chunk: the masked
-intra-chunk contraction ``(C B^T) * exp(cum_i - cum_j) * dt_j`` against x,
-the inter-chunk term ``exp(cum) * C state^T``, ``D * x``, then the state
-update ``exp(cum_Q) state + sum_j exp(cum_Q - cum_j) dt_j x_j B_j^T``.
+hd]`` in x's dtype.  Per chunk: the masked intra-chunk contraction ``(C
+B^T) * exp(cum_i - cum_j) * dt_j`` against x, the inter-chunk term
+``exp(cum) * C state^T``, ``D * x``, then the state update ``exp(cum_Q)
+state + sum_j exp(cum_Q - cum_j) dt_j x_j B_j^T``.
 
 Bound on the H100: bytes.  At the zamba2 shape (``[1, 2048, 64, 64]``, ds
 64, chunk 64) it reads x and writes y once (2 x 16.8 MB in bf16) for about
 4.3 GFLOP: 0.0103 ms of memory traffic against 0.0043 ms of bf16 tensor-core
-work.  The kernel keeps everything between those reads and writes on chip:
-one block owns a (batch row, head, slice of hd) and walks the chunks in
-order itself, holding its float32 ``[hd_slice, ds]`` state in shared memory
-(the TPU's sequential chunk grid axis becomes that loop; rows of the state
-are independent across hd, so slices need no reduction across blocks and
-the result is deterministic).  Its products are scalar float32 FMAs in
-per-thread register tiles, so it sits well above that bound (see PERF.md);
-tensor-core tiles are later work.
+work.  One block owns a (batch row, head, slice of hd) and walks the chunks
+in order itself, carrying its float32 ``[hd_slice, ds]`` state (the TPU's
+sequential chunk grid axis becomes that loop; rows of the state are
+independent across hd, so slices need no reduction across blocks and the
+result is deterministic).
+
+- bfloat16 x (the main path): the tensor-core kernel (``namespace tc``).
+  Its products are ``mma.sync`` m16n8k16 at the reference's rounding points
+  (bf16 B and C, w rounded to bf16; the two state products take their
+  float32 operand as bf16 hi + lo halves, and the state stays float32);
+  producer warps bring the next chunk's tiles through a 2-stage
+  ``cp.async`` ring while 8 compute warps work on the current one.  float32
+  B and C are cast to bf16 first, as the reference's ``_ssd_xla_chunked``
+  does (``B.astype(ct)``).  It copies 16-byte rows: x, B and C must start
+  16-byte aligned, with hd and ds multiples of 8 and their batch, seq and
+  head strides multiples of 8 elements, else ``ValueError``.
+- float32 x: the scalar kernel of the first port (register tiles of
+  float32 FMAs), with float32 or bf16 B and C.
 
 The wrapper takes strides for x, B and C (the model passes views of its
 ``xbc`` projection); only their last axis must be contiguous.  dt, A and D
@@ -98,16 +108,76 @@ def ssd_chunked_plain(x, dt, A, B, C, D, chunk: int):
 
 
 def hd_slice(hd: int) -> int:
-    """Head-dim columns per block: 32 where hd allows, else all of hd
-    (at the zamba2 shape, 2 slices x 64 heads = 128 blocks on 132 SMs)."""
+    """The scalar (float32) kernel's head-dim columns per block: 32 where hd
+    allows, else all of hd."""
     return 32 if hd % 32 == 0 else hd
 
 
 def smem_bytes(chunk: int, p: int, ds: int) -> int:
-    """Shared memory of one block (``smem_floats`` in ssd_scan.cu)."""
+    """Shared memory of one block of the scalar kernel (``f32::smem_floats``
+    in ssd_scan.cu)."""
     floats = (chunk * (p + 1) + 2 * chunk * (ds + 1) + chunk * (chunk + 1)
               + p * (ds + 1) + 3 * chunk)
     return 4 * floats
+
+
+# The tensor-core kernel's plan, ``namespace tc`` of csrc/ssd_scan.cu
+# (tests/test_torch_ssm.py reads the source and checks these against it).
+TC_WARPS = 8
+TC_PRODUCERS = 4
+TC_HD_SLICE = 32
+TC_STAGES = 2
+TC_PAD = 8
+TC_MAX_CHUNK = 128
+#: padded widths the kernel is built for (hd slice; ds)
+TC_WIDTHS_P = (16, 32, 64)
+TC_WIDTHS_N = (16, 32, 64, 128)
+
+
+def tc_slice(hd: int) -> int:
+    """Head-dim columns per block of the tensor-core kernel
+    (``tc::slice_of``)."""
+    return (TC_HD_SLICE if hd % TC_HD_SLICE == 0
+            else 16 if hd % 16 == 0 else hd)
+
+
+def tc_padded(n: int, widths) -> int | None:
+    """The smallest of the kernel's widths that holds n columns."""
+    return next((w for w in widths if n <= w), None)
+
+
+def tc_smem_bytes(chunk: int, pp: int, np_: int) -> int:
+    """Shared memory of one block of the tensor-core kernel at padded widths
+    ``pp`` (hd slice) and ``np_`` (ds) (``tc::smem_bytes``)."""
+    stage = 2 * chunk * (pp + TC_PAD) + 4 * chunk * (np_ + TC_PAD)
+    return (TC_STAGES * stage + 8 * pp * (np_ + TC_PAD)
+            + 2 * chunk * (chunk + TC_PAD) + 24 * chunk)
+
+
+def _check_tc(x, B, C, hd, ds, chunk) -> int:
+    """The tensor-core kernel's limits; returns its hd slice."""
+    p = tc_slice(hd)
+    pp, np_ = tc_padded(p, TC_WIDTHS_P), tc_padded(ds, TC_WIDTHS_N)
+    if chunk % 16 or chunk > TC_MAX_CHUNK:
+        raise ValueError(f"ssd_scan: chunk {chunk} must be a multiple of 16 "
+                         f"up to {TC_MAX_CHUNK} for the bf16 kernel")
+    if pp is None or np_ is None or p % 8 or ds % 8:
+        raise ValueError(f"ssd_scan: the bf16 kernel takes an hd slice of "
+                         f"at most {TC_WIDTHS_P[-1]} and ds up to "
+                         f"{TC_WIDTHS_N[-1]}, both multiples of 8 (hd {hd}, "
+                         f"slice {p}, ds {ds})")
+    if tc_smem_bytes(chunk, pp, np_) > MAX_SMEM:
+        raise ValueError(f"ssd_scan: chunk {chunk}, hd slice {p}, ds {ds} "
+                         f"need {tc_smem_bytes(chunk, pp, np_)} B of shared "
+                         f"memory (the card has {MAX_SMEM})")
+    for name, t, n in (("x", x, 3), ("B", B, 2), ("C", C, 2)):
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:n]):
+            raise ValueError(
+                f"ssd_scan: the bf16 kernel copies 16-byte rows; {name} at "
+                f"offset {t.data_ptr() % 16} B from 16-byte alignment with "
+                f"strides {t.stride()} is not taken (its batch, seq and head "
+                f"strides must be multiples of 8)")
+    return p
 
 
 def ssd_scan(x, dt, A, B, C, D, *, chunk: int):
@@ -137,21 +207,25 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int):
                          f"chunk {chunk} (ops.ssd pads)")
     if any(t.device != x.device for t in (dt, A, B, C, D)):
         raise ValueError("ssd_scan: inputs on different devices")
-    p = hd_slice(hd)
-    if chunk % 4 or p % 4 or ds % 4:
-        raise ValueError(f"ssd_scan: chunk {chunk}, hd slice {p} and d_state "
-                         f"{ds} must be multiples of 4 (the kernel's "
-                         f"register tiles)")
-    if smem_bytes(chunk, p, ds) > MAX_SMEM:
-        raise ValueError(f"ssd_scan: chunk {chunk}, hd slice {p}, ds {ds} "
-                         f"need {smem_bytes(chunk, p, ds)} B of shared "
-                         f"memory (the card has {MAX_SMEM})")
     dt = dt.float().contiguous()
     A = A.float().contiguous()
     D = D.float().contiguous()
     if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1:
         raise ValueError("ssd_scan: the last axis of x, B and C must be "
                          "contiguous")
+    if x.dtype == torch.bfloat16:
+        B, C = B.to(torch.bfloat16), C.to(torch.bfloat16)
+        p = _check_tc(x, B, C, hd, ds, chunk)
+    else:
+        p = hd_slice(hd)
+        if chunk % 4 or p % 4 or ds % 4:
+            raise ValueError(f"ssd_scan: chunk {chunk}, hd slice {p} and "
+                             f"d_state {ds} must be multiples of 4 (the "
+                             f"float32 kernel's register tiles)")
+        if smem_bytes(chunk, p, ds) > MAX_SMEM:
+            raise ValueError(f"ssd_scan: chunk {chunk}, hd slice {p}, ds "
+                             f"{ds} need {smem_bytes(chunk, p, ds)} B of "
+                             f"shared memory (the card has {MAX_SMEM})")
     y = torch.empty((b, s, nh, hd), dtype=x.dtype, device=x.device)
     strides = (ctypes.c_longlong * 10)(
         x.stride(0), x.stride(1), x.stride(2),

@@ -38,7 +38,7 @@ CATEGORIES = (
     ("K1 flash_attention_fwd", ("flash_fwd_kernel",)),
     ("K3 flash_decode", ("flash_decode_kernel",)),
     ("K2 rmsnorm", ("_rmsnorm_kernel",)),
-    ("K4 ssd_scan", ("ssd_scan_kernel",)),
+    ("K4 ssd_scan", ("ssd_tc_kernel", "ssd_scan_kernel")),
     ("matmul float32 (no tensor cores)", ("f32f32", "sgemm")),
     ("matmul (tensor cores)", ("nvjet", "gemm", "xmma", "cutlass",
                                "Kernel2", "sm90_")),

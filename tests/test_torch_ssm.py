@@ -13,6 +13,8 @@ cancellation in A's and D's); the Mamba layer within 1e-5.  The CUDA
 kernel itself runs only on the card (marker ``cuda``).
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -266,11 +268,233 @@ def test_ssd_wrapper_counts_nothing_on_the_cpu_and_rejects_other_devices():
         ssd.ssd_scan(*meta, chunk=32)
 
 
+# K4's tensor-core kernel (bf16): its plan and its arithmetic, mirrored in
+# Python.  These tests check the design as the source states it (the plan's
+# constants are read from the source), not the built binary: only the
+# card's comparison with the plain version checks the kernel.
+_K4_TC = (Path(ssd.__file__).parent / "csrc" / "ssd_scan.cu"
+          ).read_text().split("namespace tc {", 1)[1]
+
+
+def _k4_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _K4_TC)[1])
+
+
+def _k4_widths(fn):
+    """The padded widths of ``tc::padded_p`` / ``tc::padded_n``."""
+    body = re.search(rf"inline int {fn}\(int \w+\) \{{(.*?)\}}", _K4_TC,
+                     re.S)[1]
+    return tuple(sorted({int(v) for v in re.findall(r"\? (\d+)", body)}
+                        | {int(re.findall(r": (\d+);", body)[-1])}))
+
+
+K4_WARPS = _k4_const("WARPS")
+K4_HD_SLICE = _k4_const("HD_SLICE")
+K4_STAGES = _k4_const("STAGES")
+K4_PAD = _k4_const("PAD")
+K4_MAX_CHUNK = _k4_const("MAX_CHUNK")
+#: every shape a bf16 check runs: the reference tests', chip_smoke.py's
+#: zamba2 shape and the zamba2-width emulation case
+K4_CHECKED = SHAPES_SSD + [(1, 2048, 64, 64, 64, 64), (1, 256, 4, 64, 64, 64)]
+
+
+def k4_w_blocks(warp, mtq):
+    """The 16 x 16 blocks (mt, jb <= mt) of w that one compute warp builds:
+    round robin over the blocks in row-major order."""
+    blocks = [(mt, jb) for mt in range(mtq) for jb in range(mt + 1)]
+    return blocks[warp::K4_WARPS]
+
+
+def k4_y_tiles(warp, mtq, dp_tiles):
+    """The (row tile, 16-column tile) tiles of y that one compute warp
+    takes: the flattened row-major order, reversed every other round, so
+    that long causal rows pair with short ones."""
+    ny, tiles = mtq * dp_tiles, []
+    for rnd in range(-(-ny // K4_WARPS)):
+        k = rnd * K4_WARPS + (K4_WARPS - 1 - warp if rnd & 1 else warp)
+        if k < ny:
+            tiles.append(divmod(k, dp_tiles))
+    return tiles
+
+
+def k4_state_tiles(warp, pp, np_):
+    """The 16 x 16 state tiles (row tile of the slice, column tile of ds)
+    that one compute warp updates: k = warp + WARPS r."""
+    kn, npair = np_ // 16, (pp // 16) * (np_ // 16)
+    return [divmod(k, kn) for k in range(warp, npair, K4_WARPS)]
+
+
+def test_k4_plan_constants_match_the_wrapper():
+    assert (ssd.TC_WARPS, ssd.TC_HD_SLICE, ssd.TC_STAGES, ssd.TC_PAD,
+            ssd.TC_MAX_CHUNK) == (K4_WARPS, K4_HD_SLICE, K4_STAGES, K4_PAD,
+                                  K4_MAX_CHUNK)
+    # WARPS compute warps and PRODUCERS warps that issue the copies
+    assert re.search(r"constexpr int THREADS = 32 \* \(WARPS \+ PRODUCERS\);",
+                     _K4_TC)
+    assert ssd.TC_PRODUCERS == _k4_const("PRODUCERS") >= 1
+    assert ssd.TC_WIDTHS_P == _k4_widths("padded_p")
+    assert ssd.TC_WIDTHS_N == _k4_widths("padded_n")
+
+
 def test_kernel_shared_memory_plan_fits_every_checked_shape():
-    for _, _, _, hd, ds, chunk in SHAPES_SSD + [(1, 2048, 64, 64, 64, 64)]:
+    for _, _, _, hd, ds, chunk in K4_CHECKED:
+        # the float32 scalar kernel
         p = ssd.hd_slice(hd)
         assert ssd.smem_bytes(chunk, p, ds) <= ssd.MAX_SMEM
         assert hd % p == 0 and chunk % 4 == 0 and p % 4 == 0 and ds % 4 == 0
+        # the bf16 tensor-core kernel
+        p = ssd.tc_slice(hd)
+        pp = ssd.tc_padded(p, ssd.TC_WIDTHS_P)
+        np_ = ssd.tc_padded(ds, ssd.TC_WIDTHS_N)
+        assert chunk % 16 == 0 and chunk <= K4_MAX_CHUNK
+        # 16-byte rows of x (slice), B and C
+        assert (2 * p) % 16 == 0 and (2 * ds) % 16 == 0
+        # the layout the source's comment states, byte by byte
+        stage = chunk * (pp + K4_PAD) * 2 + 2 * chunk * (np_ + K4_PAD) * 2
+        state = 2 * 2 * pp * (np_ + K4_PAD) * 2   # hi, lo; double-buffered
+        w_tile = chunk * (chunk + K4_PAD) * 2     # bf16 w
+        scan = 2 * 3 * chunk * 4   # dt, cum, wj; double-buffered
+        total = K4_STAGES * stage + state + w_tile + scan
+        assert ssd.tc_smem_bytes(chunk, pp, np_) == total <= ssd.MAX_SMEM
+        # every row pitch is a whole number of 16-byte units whose 8 rows
+        # of an ldmatrix phase fall on 8 distinct 16-byte bank groups
+        for width in (pp, np_, chunk):
+            pitch = (width + K4_PAD) * 2
+            assert pitch % 16 == 0
+            assert len({(r * pitch // 16) % 8 for r in range(8)}) == 8
+        # the slices cover hd's columns once, each within the padded width
+        cols = np.zeros(hd, np.int32)
+        for p0 in range(0, hd, p):
+            cols[p0:p0 + p] += 1
+        assert hd % p == 0 and (cols == 1).all() and p <= pp
+        assert ds <= np_
+        # the compute warps build every block of w on and below the
+        # diagonal once, and the y tiles cover y once, tile (mt, dp) taking
+        # the column blocks 0..mt of w: every j <= i of its rows
+        mtq = chunk // 16
+        seen = np.zeros((chunk, chunk), np.int32)
+        for w in range(K4_WARPS):
+            for mt, jb in k4_w_blocks(w, mtq):
+                seen[mt * 16:mt * 16 + 16, jb * 16:jb * 16 + 16] += 1
+        assert (seen[np.tril_indices(chunk)] == 1).all()
+        assert (seen <= 1).all()
+        ys = np.zeros((chunk, pp), np.int32)
+        used = np.zeros((chunk, chunk), np.int32)
+        for w in range(K4_WARPS):
+            for mt, dp in k4_y_tiles(w, mtq, pp // 16):
+                ys[mt * 16:mt * 16 + 16, dp * 16:dp * 16 + 16] += 1
+                if dp == 0:
+                    used[mt * 16:mt * 16 + 16, :mt * 16 + 16] += 1
+        assert (ys == 1).all()
+        assert (used[np.tril_indices(chunk)] == 1).all()
+        # ... and every 16 x 16 tile of the padded [pp, np] state once
+        st = np.zeros((pp, np_), np.int32)
+        for w in range(K4_WARPS):
+            for ms, ns in k4_state_tiles(w, pp, np_):
+                st[ms * 16:ms * 16 + 16, ns * 16:ns * 16 + 16] += 1
+        assert (st == 1).all()
+
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _split(t):
+    """t as bf16 hi + lo halves (the kernel's ``split_bf16``)."""
+    hi = _bf(t)
+    return hi, _bf(t - hi)
+
+
+def k4_tc_emulation(x, dt, A, B, C, D, chunk, split=True):
+    """The bf16 tensor-core kernel's arithmetic, in float32 on the CPU:
+    B and C rounded to bf16; w = (C B^T) exp(cum_i - cum_j) dt_j rounded to
+    bf16 against bf16 x; exp(cum) C state^T with the state as bf16 hi + lo;
+    the state update with x dt exp(cum_Q - cum) as hi + lo against bf16 B;
+    the state carried in float32 across chunks.  ``split=False`` takes the
+    two state products in float32 instead (the reference's).  Pads s as
+    ``ops.ssd``; returns float32 y before its cast to x's dtype."""
+    b, s, nh, hd = x.shape
+    ds = B.shape[-1]
+    pad = (-s) % chunk
+    x, dt, B, C = (torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
+                                           + (0, pad))
+                   for t in (x, dt, B, C))
+    xq, Bq, Cq = x.float(), _bf(B), _bf(C)
+    halves = _split if split else (lambda t: (t, torch.zeros_like(t)))
+    h = torch.zeros((b, nh, hd, ds))
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    ys = []
+    for c0 in range(0, x.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        xc, dtc, Bc, Cc = xq[:, sl], dt[:, sl].float(), Bq[:, sl], Cq[:, sl]
+        cum = torch.cumsum(A.float() * dtc, dim=1)           # [b, Q, nh]
+        g = torch.einsum("bis,bjs->bij", Cc, Bc)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]       # [b, i, j, nh]
+        mask = tri[None, :, :, None]
+        w = torch.where(mask, g[..., None] * torch.exp(
+            torch.where(mask, diff, 0.0)) * dtc[:, None, :, :], 0.0)
+        y = torch.einsum("bijn,bjnd->bind", _bf(w), xc)
+        hh, hl = halves(h)
+        y = y + (torch.einsum("bis,bnds->bind", Cc, hh)
+                 + torch.einsum("bis,bnds->bind", Cc, hl)
+                 ) * torch.exp(cum)[..., None]
+        ys.append(y + D.float()[None, None, :, None] * xc)
+        wj = dtc * torch.exp(cum[:, -1:] - cum)
+        xh, xl = halves(xc * wj[..., None])
+        h = (h * torch.exp(cum[:, -1])[:, :, None, None]
+             + torch.einsum("bjnd,bjs->bnds", xh, Bc)
+             + torch.einsum("bjnd,bjs->bnds", xl, Bc))
+    return torch.cat(ys, dim=1)[:, :s]
+
+
+@pytest.mark.parametrize("b,s,nh,hd,ds,chunk",
+                         SHAPES_SSD + [(1, 256, 4, 64, 64, 64)])
+def test_k4_tc_arithmetic_matches_the_reference(b, s, nh, hd, ds, chunk):
+    """The bf16 kernel's rounding points against the Pallas kernel in
+    interpret mode, ``_ssd_xla_chunked`` and the port's float32 plain
+    version (chip_smoke.py's comparison), at the bf16 SSD tolerance."""
+    x, dt, A, B, C, D = ssd_inputs(b, s, nh, hd, ds, seed=s * 7 + hd)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32)))  # bf16 values
+    rest_t = [torch.from_numpy(a) for a in (dt, A, B, C, D)]
+    y32 = k4_tc_emulation(xt, *rest_t, chunk)
+    got = y32.to(torch.bfloat16)
+    atol, rtol = TOL["bfloat16"]
+    rest_j = [jnp.asarray(a) for a in (dt, A, B, C, D)]
+    close(got, jops.ssd(xj, *rest_j, chunk=chunk, backend="interpret"),
+          atol, rtol)
+    close(got, jops._ssd_xla_chunked(xj, *rest_j, chunk), atol, rtol)
+    close(got, ssd.ssd_chunked_plain(xt, *rest_t, chunk).to(torch.bfloat16)
+          .float().numpy(), atol, rtol)
+    # hi + lo halves against float32 state products: below bf16's own
+    # rounding of y by far (2^-9 relative), at most 2^-14 of y's scale
+    exact = k4_tc_emulation(xt, *rest_t, chunk, split=False)
+    scale = float(exact.abs().max())
+    assert float((y32 - exact).abs().max()) <= 2.0 ** -14 * scale
+
+
+def test_tc_wrapper_refuses_misaligned_rows_and_other_plans():
+    """The bf16 kernel's checks, made before any launch (so on CPU tensors
+    too): 16-byte rows, chunk a multiple of 16 up to MAX_CHUNK, widths."""
+    b, s, nh, hd, ds = 1, 64, 2, 64, 64
+    xbc = torch.zeros((b, s, nh * hd + 2 * ds + 8), dtype=torch.bfloat16)
+    x = xbc[..., :nh * hd].reshape(b, s, nh, hd)
+    B, C = xbc[..., nh * hd:nh * hd + ds], xbc[..., nh * hd + ds:][..., :ds]
+    assert ssd._check_tc(x, B, C, hd, ds, 64) == K4_HD_SLICE
+    off = xbc[..., 4:4 + nh * hd].reshape(b, s, nh, hd)  # 8 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd._check_tc(off, B, C, hd, ds, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd._check_tc(x, xbc[..., 4:4 + ds], C, hd, ds, 64)
+    odd = torch.zeros((b, s, 2 * ds + 4), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):  # seq stride 132
+        ssd._check_tc(x, odd[..., :ds], odd[..., ds:2 * ds], hd, ds, 64)
+    for chunk in (40, 256):
+        with pytest.raises(ValueError, match="chunk"):
+            ssd._check_tc(x, B, C, hd, ds, chunk)
+    wide = torch.zeros((b, s, 2 * 256), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ds up to"):
+        ssd._check_tc(x, wide[..., :256], wide[..., 256:], hd, 256, 64)
 
 
 @pytest.mark.cuda
