@@ -22,14 +22,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    arrival counters are back at 0 after every launch);
 4. an end-to-end check on a small input per main path: the port's model
    forward on the card (kernels) against the same weights on the CPU
-   (plain versions), at the arch's full widths; and the same for serving:
-   seamless with 2 + 2 layers, 4 greedy tokens, then one more pass whose
-   last hidden state is compared;
+   (plain versions), at the arch's full widths (gemma3-4b too, for K1 at
+   head_dim 256); one multimodal DAG step (forward and backward, every
+   gradient compared); and the same for serving: seamless with 2 + 2
+   layers, 4 greedy tokens, then one more pass whose last hidden state is
+   compared;
 5. the main paths, each through ``repro_torch.launch.train`` (actor
    training, full size, 4 stages, 8 microbatches of 1 x 2048 tokens):
    ``paper-gpt3-large`` hint bf for 3 steps, then ``--hint bfw
    --split-backward`` for 2; ``zamba2-1.2b`` bf for 3 steps, then bfw for
-   1; then ``repro_torch.launch.serve`` (full size, 4 stages, batch 8,
+   1; the multimodal DAG (``--workload multimodal``, qwen2-vl-2b full
+   width) bf for 3 steps, bfw for 2, and 2 bf steps with the reference's
+   full-size encoder settings (encoder microbatches of ~2048 tokens); then
+   ``repro_torch.launch.serve`` (full size, 4 stages, batch 8,
    cache 4096): ``seamless-m4t-large-v2`` for 32 tokens (the path of K3),
    ``zamba2-1.2b`` and ``paper-gpt3-large`` for 8.  The launch counts are
    zeroed just before each run and read just after; every kernel of the
@@ -61,10 +66,13 @@ TOL_LSE = 1e-4  # float32 log-sum-exp of either input dtype
 #: (atol, rtol) of the SSD checks in tests/test_kernels.py
 TOL_SSD = {"float32": (5e-4, 1e-5), "bfloat16": (6e-2, 3e-2)}
 #: (b, sq, hq, hkv, hd, window): the main paths, then tests/test_kernels.py,
-#: then every head dim at a ragged sq (not a multiple of 64 or 128)
+#: then every head dim at a ragged sq (not a multiple of 64 or 128), then
+#: gemma3-4b's head_dim 256 (local window 1024, global, ragged)
 ATTN_SHAPES = [
     (1, 2048, 16, 16, 96, 0),
     (1, 2048, 32, 32, 64, 0),
+    (1, 2048, 12, 2, 128, 0),
+    (1, 2052, 12, 2, 128, 0),
     (1, 128, 4, 4, 64, 0),
     (2, 200, 8, 2, 64, 0),
     (1, 384, 8, 1, 128, 0),
@@ -74,6 +82,9 @@ ATTN_SHAPES = [
     (2, 333, 4, 4, 128, 0),
     (1, 777, 4, 1, 32, 256),
     (1, 1100, 4, 4, 64, 300),
+    (1, 2048, 8, 4, 256, 1024),
+    (1, 2048, 8, 4, 256, 0),
+    (1, 1000, 8, 4, 256, 300),
 ]
 #: (b, s, nh, hd, ds, chunk): the zamba2 path, then tests/test_kernels.py
 SSD_SHAPES = [
@@ -92,7 +103,8 @@ DECODE_SHAPES = [
     (2, 512, 4, 4, 64, 300, 128),
     (1, 64, 2, 2, 32, 1, 0),
 ]
-#: main path -> the shapes its kernels run at (timed at these)
+#: main path -> the shapes its kernels run at (timed at these, in bf16
+#: unless an entry ends in its dtype's name)
 PATH_SHAPES = {
     "paper-gpt3-large": {"attn": [ATTN_SHAPES[0]], "norm": [(2048, 1536)],
                          "ssd": []},
@@ -101,6 +113,17 @@ PATH_SHAPES = {
                     "ssd": [SSD_SHAPES[0]]},
     "seamless-m4t-large-v2 serve": {"attn": [], "norm": [(1, 1024)],
                                     "ssd": []},
+    # the multimodal DAG: the text stage in bf16; the fusion and LM stages
+    # (4 text slots + 2048 tokens) and the encoder in float32, as the
+    # reference promotes a float32 activation meeting a bf16 weight
+    "qwen2-vl-2b multimodal": {
+        "attn": [(1, 2048, 12, 2, 128, 0),
+                 (1, 2052, 12, 2, 128, 0, "float32")],
+        "norm": [(2048, 1536), (2052, 1536, "float32"),
+                 (48, 768, "float32"), (4096, 768, "float32")],
+        "ssd": []},
+    "gemma3-4b": {"attn": [(1, 2048, 8, 4, 256, 1024)], "norm": [],
+                  "ssd": []},
 }
 
 COMMON_ARGS = ["--runtime", "actor", "--full-size", "--stages", "4",
@@ -118,12 +141,39 @@ MAIN_PATHS = [
       ("bfw", ["--steps", "1"] + BFW)],
      ("flash_attention_fwd", "rmsnorm", "ssd_scan")),
 ]
+#: the multimodal DAG (qwen2-vl-2b full width, 2 layers per stage: 1
+#: encoder stage, the text stage, fusion + 1 LM stage) through the launcher
+MM_ARGS = ["--workload", "multimodal", "--arch", "qwen2-vl-2b"] + COMMON_ARGS
+MM_RUNS = [("bf", ["--steps", "3", "--hint", "bf"]),
+           ("bfw", ["--steps", "2"] + BFW)]
+#: the reference launcher's full-size encoder settings for its cost model
+#: (repro/launch/train.py:217-220): the real-encoder run's config
+MM_REAL_ENCODER = dict(text_seq=512, mean_enc_tokens=2048,
+                       buckets=(1024, 2048, 4096))
 SERVE_ARGS = ["--full-size", "--stages", "4", "--batch", "8", "--cache-len",
               "4096", "--device", "cuda"]
 #: (arch, tokens): the serve runs; each must launch its kernels exactly as
 #: often as ``serve_launches`` counts from its layers
 SERVE_PATHS = [("seamless-m4t-large-v2", 32), ("zamba2-1.2b", 8),
                ("paper-gpt3-large", 8)]
+
+
+def check_no_spills(log: str, entry: str) -> int:
+    """ptxas's verbose log: every instantiation whose name holds ``entry``
+    must report 0 bytes of spill stores and loads.  Returns how many."""
+    import re
+
+    found = re.findall(r"Function properties for (\S+)\n\s*(\d+) bytes "
+                       r"stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                       r"spill loads", log)
+    hits = [(name, int(st), int(ld)) for name, _, st, ld in found
+            if entry in name]
+    if not hits:
+        raise AssertionError(f"no {entry} instantiation in the build log")
+    bad = [h for h in hits if h[1] or h[2]]
+    if bad:
+        raise AssertionError(f"ptxas spills in {bad}")
+    return len(hits)
 
 
 def card(query: str = "name,power.limit") -> str:
@@ -260,27 +310,39 @@ def phase_attention(record):
                  lambda: fa.flash_attention_fwd(off, k, v), ValueError)
     timings = []
     for path, shapes in PATH_SHAPES.items():
-        for shape in shapes["attn"]:
-            b, sq, hq, hkv, hd, _ = shape
-            sets = [attention_inputs(shape, torch.bfloat16, seed=s)
-                    for s in range(4)]
-            ms = time_ms(lambda q, k, v: fa.flash_attention_fwd(q, k, v), sets)
-            plain_ms = time_ms(
-                lambda q, k, v: fa.flash_attention_fwd_plain(q, k, v), sets,
-                iters=4)
+        for entry in shapes["attn"]:
+            shape, dn = entry[:6], (entry[6:] or ("bfloat16",))[0]
+            dtype = getattr(torch, dn)
+            b, sq, hq, hkv, hd, window = shape
+            sets = [attention_inputs(shape, dtype, seed=s) for s in range(4)]
+            ms = time_ms(lambda q, k, v: fa.flash_attention_fwd(
+                q, k, v, window=window), sets)
+            plain_ms = time_ms(lambda q, k, v: fa.flash_attention_fwd_plain(
+                q, k, v, window=window), sets, iters=4)
+            # one SDPA call on the same function: causal, or a boolean mask
+            # for the window; GQA by its kv-head broadcast
+            pos = torch.arange(sq, device="cuda")
+            mask = None if window == 0 else (
+                (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None]
+                                               < window))
             lib_sets = [tuple(t.contiguous() for t in s) for s in sets]
             lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, scale=1.0), lib_sets)
-            # causal QK^T + PV: half of 4*s^2*hd
-            flops = 2 * b * hq * sq * sq * hd
-            nbytes = 4 * b * sq * hq * hd * 2 + b * hq * sq * 4
-            bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
-            print(f"  {path} shape {shape[:5]} bf16: kernel {ms:.4f} ms  "
-                  f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound "
-                  f"{bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP / 989 "
-                  f"TFLOP/s, {nbytes:.4g} B / 3.35 TB/s)")
-            timings.append({"path": path, "shape": list(shape),
-                            "max_abs_err": errs[shape, "bfloat16"], "ms": ms,
+                q, k, v, attn_mask=mask, is_causal=mask is None, scale=1.0,
+                enable_gqa=hq != hkv), lib_sets)
+            # QK^T + PV over the unmasked (query, key) pairs of this shape
+            pairs = sum(min(i + 1, window or sq) for i in range(sq))
+            flops = 4 * b * hq * pairs * hd
+            size = dtype.itemsize
+            nbytes = (2 * b * sq * hq * hd + 2 * b * sq * hkv * hd) * size \
+                + b * hq * sq * 4
+            peak = PEAK_BF16_FLOPS if dn == "bfloat16" else PEAK_FP32_FLOPS
+            bound_ms, bound_by = bound(flops, peak, nbytes)
+            print(f"  {path} shape {shape} {dn}: kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP / "
+                  f"{peak / 1e12:g} TFLOP/s, {nbytes:.4g} B / 3.35 TB/s)")
+            timings.append({"path": path, "shape": list(shape), "dtype": dn,
+                            "max_abs_err": errs[shape, dn], "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "library_ms": lib_ms})
     record["flash_attention_fwd"] = kernel_entry(
@@ -299,8 +361,10 @@ def phase_rmsnorm(record):
     g = torch.Generator(device="cuda").manual_seed(7)
     timings = []
     for path, shapes in PATH_SHAPES.items():
-        for rows, d in shapes["norm"]:
-            err = None
+        for entry in shapes["norm"]:
+            (rows, d), tdn = entry[:2], (entry[2:] or ("bfloat16",))[0]
+            tdtype = getattr(torch, tdn)
+            err = {}
             for dtype in (torch.bfloat16, torch.float32):
                 dn = str(dtype).split(".")[1]
                 x = torch.randn((rows, d), generator=g,
@@ -309,32 +373,42 @@ def phase_rmsnorm(record):
                          * 0.1).to(dtype)
                 got = rn.rmsnorm(x, scale)
                 torch.cuda.synchronize()
-                e = check_close(f"[{rows}, {d}] {dn}", got,
-                                rn.rmsnorm_plain(x, scale), TOL[dn])
-                err = e if dtype == torch.bfloat16 else err
+                err[dn] = check_close(f"[{rows}, {d}] {dn}", got,
+                                      rn.rmsnorm_plain(x, scale), TOL[dn])
+            # the model's float32 activations meet a bf16 scale
+            x = torch.randn((rows, d), generator=g, device="cuda")
+            scale = (torch.randn((d,), generator=g, device="cuda")
+                     * 0.1).bfloat16()
+            got = rn.rmsnorm(x, scale)
+            torch.cuda.synchronize()
+            check_close(f"[{rows}, {d}] float32 x, bfloat16 scale", got,
+                        rn.rmsnorm_plain(x, scale), TOL["float32"])
             # more distinct inputs than the 50 MB L2 holds, up to one per
             # timed call (a [1, d] row stays L2-resident, as in the model)
-            n_sets = min(64, max(4, (2 * 50 * 2**20) // (rows * d * 2) + 1))
+            size = tdtype.itemsize
+            n_sets = min(64, max(4, (2 * 50 * 2**20) // (rows * d * size)
+                                 + 1))
             sets = []
             for _ in range(n_sets):
                 x = torch.randn((rows, d), generator=g,
-                                device="cuda").to(torch.bfloat16)
+                                device="cuda").to(tdtype)
                 sets.append((x, (torch.randn((d,), generator=g, device="cuda")
                                  * 0.1).to(torch.bfloat16)))
             ms = time_ms(lambda x, s: rn.rmsnorm(x, s), sets, iters=64)
             plain_ms = time_ms(lambda x, s: rn.rmsnorm_plain(x, s), sets,
                                iters=64)
             lib_ms = time_ms(lambda x, s, d=d: F.rms_norm(
-                x, (d,), weight=1.0 + s, eps=1e-5), sets, iters=64)
-            nbytes = 2 * rows * d * 2 + d * 2
+                x, (d,), weight=1.0 + s.to(x.dtype), eps=1e-5), sets,
+                iters=64)
+            nbytes = 2 * rows * d * size + d * 2
             flops = 4 * rows * d
             bound_ms, bound_by = bound(flops, PEAK_FP32_FLOPS, nbytes)
-            print(f"  {path} [{rows}, {d}] bf16: kernel {ms:.4f} ms  plain "
+            print(f"  {path} [{rows}, {d}] {tdn}: kernel {ms:.4f} ms  plain "
                   f"{plain_ms:.4f} ms  F.rms_norm {lib_ms:.4f} ms  bound "
                   f"{bound_ms:.4f} ms ({bound_by}: {nbytes:.4g} B / 3.35 "
                   f"TB/s, {flops:.4g} FLOP / 67 TFLOP/s)")
-            timings.append({"path": path, "shape": [rows, d],
-                            "max_abs_err": err, "ms": ms,
+            timings.append({"path": path, "shape": [rows, d], "dtype": tdn,
+                            "max_abs_err": err[tdn], "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "library_ms": lib_ms})
     record["rmsnorm"] = kernel_entry(
@@ -586,7 +660,8 @@ def phase_small_model():
     """The port's forward on the card (kernels) against the CPU (plain
     versions) on identical weights, float32, 256 tokens, full widths:
     paper-gpt3-large with 2 layers; zamba2-1.2b with 3 Mamba layers on 2
-    stages (a shared-block slot and a disabled slot)."""
+    stages (a shared-block slot and a disabled slot); gemma3-4b with 6
+    layers, five local and one global (K1 at head_dim 256)."""
     import copy
 
     import torch
@@ -594,7 +669,8 @@ def phase_small_model():
     from repro_torch.models.build import build
 
     print("small-input forward, card (kernels) vs CPU (plain), float32:")
-    for arch, layers in (("paper-gpt3-large", 2), ("zamba2-1.2b", 3)):
+    for arch, layers in (("paper-gpt3-large", 2), ("zamba2-1.2b", 3),
+                         ("gemma3-4b", 6)):
         cfg = small_config(arch, layers)
         model = build(cfg, num_stages=2)
         sp_cpu = [model.init_stage_params(s, seed=3, device="cpu")
@@ -616,9 +692,97 @@ def phase_small_model():
             raise AssertionError(f"logits of shape {tuple(got.shape)}")
         if not torch.isfinite(got).all():
             raise AssertionError("non-finite logits on the card")
-        check_close(f"{arch} widths, {layers} layers (shared slots "
-                    f"{model.shared_flags.tolist()}), 256 tokens: logits",
-                    got.cpu(), want, 1e-3)
+        check_close(f"{arch} widths, {layers} layers {cfg.pattern} "
+                    f"(shared slots {model.shared_flags.tolist()}), 256 "
+                    f"tokens: logits", got.cpu(), want, 1e-3)
+        del sp_cpu, io_cpu, sp_gpu, io_gpu, got, want
+        torch.cuda.empty_cache()
+
+
+#: the small multimodal check: qwen2-vl-2b at full width, float32, one
+#: layer per stage, 1 encoder stage + text + 2 LM stages
+SMALL_MM = dict(enc_stages=1, lm_stages=2, enc_layers_per_stage=1,
+                lm_layers_per_stage=1, text_seq=256, mean_enc_tokens=96,
+                buckets=(64, 128, 192), reduced=False)
+#: relative tolerance of the small multimodal check's loss, and of each
+#: gradient's max |card - CPU| against its own max |.| (float32 sums in
+#: another order, through the kernels' float32 paths)
+TOL_MM = 1e-3
+
+
+def phase_small_multimodal():
+    """One forward and one backward of the multimodal DAG on the card
+    (kernels) against the CPU (plain versions) on identical weights:
+    qwen2-vl-2b at full width in float32, 1 encoder stage, the text stage
+    and 2 LM stages of one layer each, 2 microbatches of 256 text tokens,
+    through the actor runtime in fixed order with deterministic reduction.
+    The losses and every parameter gradient must agree within TOL_MM."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import HintKind
+    from repro_torch.data.synthetic import multimodal_batch
+    from repro_torch.launch import train
+    from repro_torch.multimodal import (
+        MultimodalStageFns,
+        MultimodalStageProgram,
+        multimodal_config,
+    )
+    from repro_torch.multimodal.model import MultimodalModel
+    from repro_torch.multimodal.stagefn import MultimodalStageOptions
+    from repro_torch.runtime.rrfp import ActorConfig, ActorDriver
+
+    print("small multimodal DAG step, card (kernels) vs CPU (plain), "
+          "float32:")
+    cfg = multimodal_config("qwen2-vl-2b", **SMALL_MM)
+    cfg = dataclasses.replace(cfg, lm_cfg=dataclasses.replace(
+        cfg.lm_cfg, dtype=torch.float32))
+    model = MultimodalModel(cfg)
+    m = 2
+    fns = MultimodalStageFns(model, MultimodalStageOptions(
+        mb_rows=1, loss_scale=1.0 / (m * cfg.text_seq)))
+    params_cpu = model.init_stage_params(seed=3, device="cpu")
+    arrays = multimodal_batch(cfg, m, 1, seed=5, step=0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = (params_cpu if dev == "cpu" else
+                  [copy.deepcopy(p).to("cuda") for p in params_cpu])
+        batch = train._device_mm_batch(arrays, dev)
+        programs = [MultimodalStageProgram(fns, s, params[s], batch,
+                                           deterministic_reduction=True)
+                    for s in range(cfg.num_stages)]
+        acfg = ActorConfig(mode="precommitted", hint=HintKind.BF,
+                           fixed_order="1f1b", deadlock_timeout=300.0)
+        ActorDriver(cfg.spec(m), None, acfg).run_threaded(list(programs))
+        for p in programs:
+            p.finalize()
+        out[dev] = ([p.loss_sum for p in programs],
+                    [[None if g is None else g.cpu() for g in p.d_params]
+                     for p in programs])
+    l_cpu, l_gpu = sum(out["cpu"][0]), sum(out["cuda"][0])
+    if not math.isfinite(l_gpu) or abs(l_gpu - l_cpu) > TOL_MM * abs(l_cpu):
+        raise AssertionError(f"multimodal loss: card {l_gpu} vs CPU {l_cpu}")
+    print(f"  loss sum: card {l_gpu:.6f}  CPU {l_cpu:.6f}  (tolerance "
+          f"{TOL_MM:g} relative)  ok")
+    worst = 0.0
+    for s, (gc, gg) in enumerate(zip(out["cpu"][1], out["cuda"][1])):
+        names = [n for n, _ in params_cpu[s].named_parameters()]
+        for name, a, b in zip(names, gc, gg):
+            if (a is None) != (b is None):
+                raise AssertionError(f"stage {s} {name}: a gradient on one "
+                                     f"device only")
+            if a is None:
+                continue
+            rel = float((a - b).abs().max()) / max(float(a.abs().max()),
+                                                   1e-30)
+            worst = max(worst, rel)
+            if not math.isfinite(rel) or rel > TOL_MM:
+                raise AssertionError(f"stage {s} {name}: max |card - CPU| "
+                                     f"is {rel:.3e} of max |grad|")
+    print(f"  every gradient of {cfg.num_stages} stages: max |card - CPU| "
+          f"at most {worst:.3e} of its max |.|  (tolerance {TOL_MM:g})  ok")
 
 
 def decode_pass(model, sp, io, caches, tokens, pos):
@@ -778,6 +942,78 @@ def phase_main_path():
     return runs
 
 
+def phase_multimodal_path():
+    """The multimodal main path through ``repro_torch.launch.train
+    --workload multimodal`` (MM_ARGS): hint bf for 3 steps, then bfw for 2;
+    then 2 bf steps of ``train_multimodal(args, model=...)`` with the
+    reference's full-size encoder settings (MM_REAL_ENCODER: encoder
+    microbatches of ~2048 tokens in buckets up to 4096).  The launch
+    counts are zeroed just before each run and read just after; K1 and K2
+    must launch in each, the losses be finite, and bf and bfw give the same
+    step-0 loss."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.multimodal import multimodal_model
+
+    runs = {}
+    label = "qwen2-vl-2b multimodal"
+    real = ("real encoder bf", ["--steps", "2", "--hint", "bf"])
+    for name, extra in MM_RUNS + [real]:
+        argv = MM_ARGS + extra
+        model = None
+        if name == real[0]:
+            i = argv.index("--seq") + 1
+            argv[i] = str(MM_REAL_ENCODER["text_seq"])
+            enc, lm = train._multimodal_stage_split(4)
+            model = multimodal_model("qwen2-vl-2b", enc_stages=enc,
+                                     lm_stages=lm, reduced=False,
+                                     **MM_REAL_ENCODER)
+        print(f"main path {label} ({name}): python -m "
+              f"repro_torch.launch.train " + " ".join(argv)
+              + (f"  [model: multimodal_config(..., {MM_REAL_ENCODER})]"
+                 if model is not None else ""))
+        args = train.parser().parse_args(argv)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        run = train.train_multimodal(args, model=model)
+        counts = ops.launch_counts()
+        mem = torch.cuda.max_memory_allocated()
+        steps = len(run.losses)
+        tokens = args.microbatches * args.mb_rows * args.seq
+        print(f"  losses {run.losses}  step seconds {run.step_seconds}  "
+              f"launches {counts} "
+              f"({ {k: v / steps for k, v in counts.items()} } per step)"
+              f"  peak memory {mem / 2**30:.2f} GiB")
+        for i, sec in enumerate(run.step_seconds):
+            print(f"  step {i}: {sec:.3f} s  {tokens / sec:,.0f} text "
+                  f"tokens/s")
+        print("  card after the run (SM clock, max SM clock, power, "
+              "temperature): " + card("clocks.sm,clocks.max.sm,"
+                                      "power.draw,temperature.gpu"))
+        if not all(math.isfinite(x) for x in run.losses):
+            raise AssertionError(f"non-finite losses in the multimodal "
+                                 f"{name} run")
+        missing = [k for k in ("flash_attention_fwd", "rmsnorm")
+                   if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"the multimodal {name} run launched no "
+                                 f"{missing}")
+        runs[label, name] = (run, counts, mem)
+        del model
+        torch.cuda.empty_cache()
+    l_bf = runs[label, "bf"][0].losses[0]
+    l_bfw = runs[label, "bfw"][0].losses[0]
+    if abs(l_bf - l_bfw) > TOL["bfloat16"] * max(1.0, abs(l_bf)):
+        raise AssertionError(f"multimodal step-0 losses disagree: bf {l_bf} "
+                             f"vs bfw {l_bfw}")
+    print(f"  {label} step-0 loss bf {l_bf} vs bfw {l_bfw}: agree within "
+          f"{TOL['bfloat16']:g} (relative)")
+    return runs
+
+
 def phase_serve_path():
     """The serve runs of SERVE_PATHS through ``launch.serve``; each is
     checked for its exact launch counts, tokens inside the padded vocab,
@@ -867,6 +1103,10 @@ def main(argv=None) -> int:
                                                   else ""))
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({'reused' if not secs else 'compiled'})")
+    if "flash_attention" in _build.BUILD_LOG:  # K1 at head_dim 256
+        n = check_no_spills(_build.BUILD_LOG["flash_attention"][1],
+                            "flash_fwd_kernelILi256E")
+        print(f"K1 head_dim 256: {n} instantiations, no ptxas spills")
 
     record: dict = {}
     phase_attention(record)
@@ -876,9 +1116,11 @@ def main(argv=None) -> int:
     if "--kernels-only" in argv:
         return 0
     phase_small_model()
+    phase_small_multimodal()
     phase_small_serve()
     runs = phase_main_path()
     torch.cuda.empty_cache()
+    runs.update(phase_multimodal_path())
     runs.update(phase_serve_path())
     kernels = []
     for name, rec in record.items():

@@ -10,7 +10,7 @@ three consumers, which previously carried parallel implementations:
   models (vision stages scale with token count, LM stages barely);
 * ``data.synthetic`` — per-microbatch encoder-token counts of the real
   multimodal batches fed to the jitted DAG pipeline;
-* ``repro.multimodal`` — the shape-bucketing layer that pads those
+* ``repro_torch.multimodal`` — the shape-bucketing layer that pads those
   variable lengths to a bounded bucket set so jit recompiles stay bounded.
 
 The skew is a **mean-one lognormal**: multiplying a mean token count (or a

@@ -1,7 +1,8 @@
 """Deterministic synthetic data pipeline with host-side prefetch (numpy).
 
-A copy of the reference's ``repro.data.synthetic`` (language batches):
-the same (seed, step) gives the same arrays in both packages.
+A copy of the reference's ``repro.data.synthetic`` (language and
+multimodal batches): the same (seed, step) gives the same arrays in both
+packages.
 
 Batches are reproducible functions of (seed, step) — restart-safe: resuming
 from a checkpoint at step k regenerates exactly the stream the crashed run
@@ -16,6 +17,7 @@ from typing import Iterator
 
 import numpy as np
 
+from repro_torch.data.lengths import bucket_for, sample_token_lengths
 from repro_torch.models.common import ArchConfig
 
 
@@ -54,6 +56,46 @@ def _token_stream(rng: np.random.Generator, v: int, batch: int,
     toks = base.copy()
     toks[:, 1:] = np.where(follow[:, 1:], succ[toks[:, :-1]], base[:, 1:])
     return toks
+
+
+def multimodal_batch(mm_cfg, num_microbatches: int, mb_rows: int, *,
+                     seed: int = 0, step: int = 0,
+                     bucketing: bool = True) -> dict:
+    """One global batch for a branch+fusion multimodal pipeline.
+
+    Per-microbatch encoder-token counts come from the shared modality
+    length sampler (``repro_torch.data.lengths`` — the same distribution the DES
+    cost models use for compute skew).  With ``bucketing`` each
+    microbatch's encoder embeddings are zero-padded up to the smallest
+    config bucket that fits (bounding jit retraces by the bucket count);
+    without it they stay at their exact length (one retrace per distinct
+    length — the reference the bitwise parity tests compare against).
+
+    Returns ``tokens``/``labels`` ([M*mb_rows, text_seq]), ``enc_embeds``
+    (list of M ``[mb_rows, padded_len, d_enc]`` float32 arrays) and
+    ``enc_lens`` ([M] valid token counts).
+    """
+    rng = _rng(seed, step)
+    batch = num_microbatches * mb_rows
+    toks = _token_stream(rng, mm_cfg.vocab_size, batch, mm_cfg.text_seq)
+    lens = sample_token_lengths(
+        num_microbatches, mm_cfg.mean_enc_tokens, mm_cfg.enc_sigma,
+        seed=seed, step=step, lo=mm_cfg.fusion_slots,
+        hi=max(mm_cfg.buckets))
+    enc_embeds = []
+    for j in range(num_microbatches):
+        n = int(lens[j])
+        pad = bucket_for(n, mm_cfg.buckets) if bucketing else n
+        x = np.zeros((mb_rows, pad, mm_cfg.d_enc), np.float32)
+        x[:, :n] = (rng.standard_normal((mb_rows, n, mm_cfg.d_enc))
+                    * 0.02).astype(np.float32)
+        enc_embeds.append(x)
+    return {
+        "tokens": toks[:, :mm_cfg.text_seq].astype(np.int32),
+        "labels": toks[:, 1:mm_cfg.text_seq + 1].astype(np.int32),
+        "enc_embeds": enc_embeds,
+        "enc_lens": lens.astype(np.int32),
+    }
 
 
 class PrefetchIterator:

@@ -16,16 +16,21 @@
 // bfloat16 (the main path): a FlashAttention-2-style kernel on the tensor
 // cores.  One block of 4 warps per (BLOCK_M query rows, query head, batch
 // row); each warp owns BLOCK_M/4 rows and loops over 64-key tiles.
+// Head_dim 256 (gemma3) would need 128 registers a thread for the O
+// accumulator alone, so there the block has 8 warps in two column groups:
+// warps w and w + 4 own the same 16 rows, both compute their S (and the
+// same softmax, bit for bit), and each accumulates half of O's columns;
+// Q stays in shared memory and its fragments are loaded at every k-step.
 //  - Both products are mma.sync m16n8k16 (bf16 in, float32 accumulate).
-//    S = Q K^T takes Q fragments loaded once per block by ldmatrix and K
-//    fragments by ldmatrix; O += P V takes P straight from the S registers
+//    S = Q K^T takes Q fragments loaded once per block by ldmatrix (up to
+//    hd 128) and K fragments by ldmatrix; O += P V takes P straight from the S registers
 //    (the accumulator layout of two n8 tiles is the A layout of one k16
 //    step), rounded to bf16, and V fragments by ldmatrix.trans.
 //  - K and V tiles stay bf16 in shared memory, filled by 16-byte cp.async
 //    copies in a 2-stage ring: the next tile's loads are in flight while
 //    the current one computes.  Rows are padded by 8 bf16 (16 B), which
 //    puts the 8 rows of every ldmatrix phase on 8 distinct 16-byte bank
-//    groups for every head dim (pitches 80, 144, 208, 272 B).
+//    groups for every head dim (pitches 80, 144, 208, 272, 528 B).
 //  - The online softmax stays in float32 registers: the row max across the
 //    quad that shares a row by shuffles, l summed from the unrounded p and
 //    reduced once at the end.  Masks are evaluated only on tiles that
@@ -244,8 +249,7 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
+constexpr int WARPS = 4;   // warps of one column group (rows of a block)
 constexpr int BLOCK_N = 64;  // keys per tile
 constexpr int PAD = 8;       // bf16 per shared-memory row beyond hd
 constexpr float LOG2E = 1.4426950408889634f;
@@ -257,6 +261,25 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <int HD>
 __host__ __device__ constexpr int block_m() {
   return HD <= 64 ? 128 : 64;
+}
+
+// Q fragments held in registers for the whole block (beside S and the O
+// accumulator), or loaded from shared memory at every k-step (hd 256).
+template <int HD>
+__host__ __device__ constexpr bool q_in_regs() {
+  return HD <= 128;
+}
+
+// Column groups: warp groups of WARPS that share the block's rows and
+// split O's columns (2 at hd 256: 64 accumulator registers a thread).
+template <int HD>
+__host__ __device__ constexpr int col_groups() {
+  return HD <= 128 ? 1 : 2;
+}
+
+template <int HD>
+__host__ __device__ constexpr int threads() {
+  return 32 * WARPS * col_groups<HD>();
 }
 
 template <int HD>
@@ -328,6 +351,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long stride, int row0,
                                           int limit, int tid) {
   constexpr int CH = HD / 8;  // 16-byte chunks per row
+  constexpr int THREADS = threads<HD>();
   static_assert((ROWS * CH) % THREADS == 0, "tile copy must divide evenly");
 #pragma unroll
   for (int i = 0; i < ROWS * CH / THREADS; ++i) {
@@ -341,18 +365,20 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(threads<HD>())
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int hq, int group,
                  Strides st, int causal, int window) {
   constexpr int BM = block_m<HD>();
+  constexpr int THREADS = threads<HD>();
   constexpr int MT = BM / (16 * WARPS);  // m16 tiles per warp
   constexpr int LD = HD + PAD;
   constexpr int KS = HD / 16;       // k16 steps of Q K^T
   constexpr int NT = BLOCK_N / 8;   // n8 tiles of S
-  constexpr int DT = HD / 8;        // n8 tiles of O
+  constexpr int DT = HD / 8 / col_groups<HD>();  // n8 tiles of this O part
   constexpr int CH = HD / 8;        // 16-byte chunks per row
+  constexpr bool QREG = q_in_regs<HD>();
   static_assert(MT == 1 || MT == 2, "BLOCK_M is 64 or 128");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]; then O
@@ -360,7 +386,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sV = sK + 2 * BLOCK_N * LD;              // [2][BLOCK_N][LD]
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int warp = (tid >> 5) % WARPS;  // this warp's rows in the block
+  const int col0 = (tid >> 5) / WARPS * DT * 8;  // its first O column
   const int lane = tid & 31;
   const int h = blockIdx.x;
   const int bi = blockIdx.y;
@@ -405,14 +432,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b_row = (lane & 7) + (lane >> 4) * 8;
   const int b_col = ((lane >> 3) & 1) * 8;
 
-  uint32_t qf[MT][KS][4];
+  // This lane's ldmatrix address of the warp's Q rows at k-step ks.
+  const bf16* q_lane = sQ + (warp * 16 * MT + a_row) * LD + a_col;
+  uint32_t qf[MT][QREG ? KS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      ldmatrix_x4(qf[mt][ks],
-                  smem_addr(sQ + (warp * 16 * MT + mt * 16 + a_row) * LD +
-                            ks * 16 + a_col));
+      for (int ks = 0; ks < KS; ++ks)
+        ldmatrix_x4(qf[mt][ks], smem_addr(q_lane + mt * 16 * LD + ks * 16));
+  }
 
   float m_r[MT][2], l_r[MT][2], acc[MT][DT][4];
 #pragma unroll
@@ -457,6 +486,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (QREG) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) qa[mt][e] = qf[mt][ks][e];
+          } else {
+            ldmatrix_x4(qa[mt], smem_addr(q_lane + mt * 16 * LD + ks * 16));
+          }
+        }
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           uint32_t b[4];
@@ -464,8 +503,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                    b_col));
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(s[mt][2 * np], qf[mt][ks], b[0], b[1]);
-            mma_bf16(s[mt][2 * np + 1], qf[mt][ks], b[2], b[3]);
+            mma_bf16(s[mt][2 * np], qa[mt], b[0], b[1]);
+            mma_bf16(s[mt][2 * np + 1], qa[mt], b[2], b[3]);
           }
         }
       }
@@ -537,7 +576,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int dp = 0; dp < DT / 2; ++dp) {
           uint32_t b[4];
           ldmatrix_x4_trans(b, smem_addr(tV + (t * 16 + a_row) * LD +
-                                         dp * 16 + a_col));
+                                         col0 + dp * 16 + a_col));
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
             mma_bf16(acc[mt][2 * dp], pa[mt][t], b[0], b[1]);
@@ -549,7 +588,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // this stage is refilled by the next iteration
   }
   cp_async_wait<0>();
-  __syncthreads();  // every warp's Q fragments are in registers: reuse sQ
+  __syncthreads();  // every warp is done with sQ (and the ring): reuse it
 
   // Epilogue: O / l as bf16 into shared memory, lse per row, then 16-byte
   // stores of whole rows.
@@ -566,10 +605,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int r = warp * 16 * MT + mt * 16 + g + rr * 8;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt)
-        *reinterpret_cast<uint32_t*>(sO + r * LD + dt * 8 + tig * 2) =
+        *reinterpret_cast<uint32_t*>(sO + r * LD + col0 + dt * 8 +
+                                     tig * 2) =
             pack_bf16(acc[mt][dt][2 * rr] * inv,
                       acc[mt][dt][2 * rr + 1] * inv);
-      if (tig == 0 && m0 + r < sq)
+      if (tig == 0 && col0 == 0 && m0 + r < sq)
         lse[((long long)bi * hq + h) * sq + m0 + r] = m_r[mt][rr] + logf(l);
     }
   }
@@ -602,7 +642,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
   constexpr int BM = block_m<HD>();
   dim3 grid(hq, b, (sq + BM - 1) / BM);
-  flash_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<HD><<<grid, threads<HD>(), smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, sk, hq,
       hq / hkv, st, causal, window);
@@ -678,6 +718,9 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                         causal, window, s);
     case 128:
       return launch<128>(dtype, q, k, v, o, lse, b, hq, hkv, sq, sk, st,
+                         causal, window, s);
+    case 256:
+      return launch<256>(dtype, q, k, v, o, lse, b, hq, hkv, sq, sk, st,
                          causal, window, s);
     default:
       return cudaErrorInvalidValue;

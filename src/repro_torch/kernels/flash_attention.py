@@ -32,7 +32,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF
 
 COUNTER = _build.LaunchCounter("flash_attention_fwd")
-HEAD_DIMS = (32, 64, 96, 128)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

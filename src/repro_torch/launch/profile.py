@@ -1,16 +1,19 @@
 """Where the device time of one training or serve step goes (``torch.profiler``).
 
     python -m repro_torch.launch.profile [--out PATH] [train flags]
+    python -m repro_torch.launch.profile --workload multimodal [--out PATH]
     python -m repro_torch.launch.profile --serve [--out PATH] [serve flags]
 
 Runs :func:`repro_torch.launch.train.train_actor` for three steps (default
 flags: the first main path of ``chip_smoke.py``: paper-gpt3-large full
 size, 4 stages, 8 microbatches of 1 x 2048 tokens, hint bf; give train
-flags, e.g. ``--arch zamba2-1.2b --full-size ...``, for another), or with
-``--serve`` :func:`repro_torch.launch.serve.serve` for three tokens
-(default flags: the serve main path, seamless-m4t-large-v2 full size, 4
-stages, batch 8, cache 4096), and traces the third step with CUDA
-activity.  Prints the step's wall time, the device's
+flags, e.g. ``--arch zamba2-1.2b --full-size ...``, for another), with
+``--workload multimodal`` :func:`~repro_torch.launch.train.train_multimodal`
+(default flags: qwen2-vl-2b full size, 4 stages, 8 microbatches of 1 x
+2048 text tokens, hint bf), or with ``--serve``
+:func:`repro_torch.launch.serve.serve` for three tokens (default flags:
+the serve main path, seamless-m4t-large-v2 full size, 4 stages, batch 8,
+cache 4096), and traces the third step with CUDA activity.  Prints the step's wall time, the device's
 busy time (union of kernel intervals; every stage shares the default
 stream) and idle share, the time per kernel category and the heaviest
 kernels, and writes the same as JSON to ``--out``.  Needs a GPU; the
@@ -31,6 +34,9 @@ from repro_torch.launch import serve, train
 DEFAULT_ARGS = ["--arch", "paper-gpt3-large", "--full-size", "--stages", "4",
                 "--microbatches", "8", "--mb-rows", "1", "--seq", "2048",
                 "--hint", "bf"]
+DEFAULT_MM_ARGS = ["--arch", "qwen2-vl-2b", "--full-size", "--stages", "4",
+                   "--microbatches", "8", "--mb-rows", "1", "--seq", "2048",
+                   "--hint", "bf"]
 DEFAULT_SERVE_ARGS = ["--arch", "seamless-m4t-large-v2", "--full-size",
                       "--stages", "4", "--batch", "8", "--cache-len", "4096"]
 #: (category, substrings of the kernel name), first match wins
@@ -113,11 +119,18 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--out", default=None)
     ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--workload", default="language",
+                    choices=("language", "multimodal"))
     own, rest = ap.parse_known_args(argv)
     if own.serve:
         args = serve.parser().parse_args((rest or DEFAULT_SERVE_ARGS)
                                          + ["--tokens", "3"])
         run_fn = serve.serve
+    elif own.workload == "multimodal":
+        args = train.parser().parse_args(
+            (rest or DEFAULT_MM_ARGS)
+            + ["--workload", "multimodal", "--steps", "3"])
+        run_fn = train.train_multimodal
     else:
         args = train.parser().parse_args((rest or DEFAULT_ARGS)
                                          + ["--steps", "3"])

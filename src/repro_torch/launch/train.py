@@ -14,6 +14,16 @@ not overlap on the device).  Task times the driver records are host
 enqueue times; the step wall time, which ends in the loss's ``float()``
 sync, is the device-honest number.
 
+``--workload multimodal`` trains the branch+fusion DAG instead (port of
+the reference's ``train_multimodal``: encoder branch and text frontend
+feeding a fusion stage, then the LM chain; ``--arch`` qwen2-vl-2b by
+default, or seamless-m4t-large-v2), on the thread substrate, or with
+``--substrate sim`` through the virtual-clock actor substrate on the DAG's
+cost model:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --workload multimodal \
+        --full-size --stages 4 --microbatches 8 --seq 2048 --steps 3
+
 Runs on the GPU unless ``--device cpu`` is given; without CUDA it raises.
 """
 from __future__ import annotations
@@ -28,8 +38,17 @@ from repro_torch.configs import registry
 from repro_torch.core.costs import CostModel
 from repro_torch.core.hints import HintKind
 from repro_torch.core.taskgraph import PipelineSpec
-from repro_torch.data.synthetic import synth_batch
+from repro_torch.data.synthetic import multimodal_batch, synth_batch
 from repro_torch.models.build import build
+from repro_torch.multimodal import (
+    MULTIMODAL_ARCHS,
+    MultimodalStageFns,
+    MultimodalStageProgram,
+    multimodal_config,
+    multimodal_dag_costs,
+    multimodal_model,
+)
+from repro_torch.multimodal.stagefn import MultimodalStageOptions
 from repro_torch.optim.adamw import AdamWConfig, make_host_update
 from repro_torch.pipeline.stagefn import (
     ActorStageProgram,
@@ -62,6 +81,8 @@ DEFERRED_FLAGS = {
 class TrainRun:
     losses: list[float]
     step_seconds: list[float]
+    #: ``--substrate sim``: the simulated makespan of each step (s)
+    makespans: list[float] = dataclasses.field(default_factory=list)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -95,6 +116,8 @@ def train_actor(args, *, init_params=None, step_hook=None) -> TrainRun:
     runs after each step (the profiler advances its schedule there).
     """
     device = resolve_device(args.device)
+    if args.arch is None:
+        args.arch = "deepseek-7b"
     cfg = (registry.reduced_config(args.arch, num_layers=args.layers)
            if not args.full_size else registry.get_arch(args.arch))
     model = build(cfg, num_stages=args.stages)
@@ -216,14 +239,205 @@ def train_actor(args, *, init_params=None, step_hook=None) -> TrainRun:
     return run
 
 
+# ---------------------------------------------------------------------------
+# multimodal DAG workload (--workload multimodal)
+# ---------------------------------------------------------------------------
+def _multimodal_stage_split(stages: int) -> tuple[int, int]:
+    """Split a total stage budget into (encoder, LM) branch depths.
+
+    Total stages = encoder branch + 1 text frontend + LM chain; the LM
+    chain (fusion + decoder) gets at least as many stages as the encoder.
+    """
+    if stages < 3:
+        raise SystemExit(
+            "--workload multimodal needs --stages >= 3 "
+            "(encoder branch + text frontend + fusion/LM chain)")
+    enc = max(1, (stages - 1) // 2)
+    return enc, stages - 1 - enc
+
+
+def _device_mm_batch(arrays: dict, device) -> dict:
+    """numpy multimodal batch -> device tensors; the valid encoder lengths
+    stay host integers (they set shapes and masks, not values)."""
+    return {"tokens": torch.from_numpy(arrays["tokens"]).long().to(device),
+            "labels": torch.from_numpy(arrays["labels"]).long().to(device),
+            "enc_embeds": [torch.from_numpy(e).to(device)
+                           for e in arrays["enc_embeds"]],
+            "enc_lens": [int(n) for n in arrays["enc_lens"]]}
+
+
+def train_multimodal(args, *, model=None, init_params=None,
+                     step_hook=None) -> TrainRun:
+    """Train the branch+fusion multimodal DAG pipeline on the actor runtime.
+
+    ``--substrate thread`` (default) drives the real encoder / text /
+    fusion / LM stage callables with thread-per-stage actors, including
+    variable-length vision/audio microbatches padded to buckets and
+    (optionally) BFW split backward; AdamW runs over the accumulated
+    per-stage grads.  ``--substrate sim`` runs the same DAG task graph
+    through the virtual-clock actor substrate on the DES cost model of the
+    full-size topology and returns the makespans.
+
+    ``model`` replaces the ``MultimodalModel`` built from the flags (a
+    caller's other ``multimodal_config`` keywords); ``init_params(model,
+    device) -> stage modules`` replaces the seeded init (the parity tests
+    load the reference's weights through it); ``step_hook(step)`` runs
+    after each step.
+    """
+    if args.arch is None:
+        args.arch = "qwen2-vl-2b"
+    if args.arch not in MULTIMODAL_ARCHS:
+        raise SystemExit(
+            f"--workload multimodal needs a multimodal arch, not "
+            f"{args.arch!r}; registered: {sorted(MULTIMODAL_ARCHS)}")
+    if args.replay_trace:
+        raise SystemExit("--replay-trace is not supported for the "
+                         "multimodal workload yet; record works")
+    enc_stages, lm_stages = _multimodal_stage_split(args.stages)
+    if model is None:
+        model = multimodal_model(
+            args.arch, enc_stages=enc_stages, lm_stages=lm_stages,
+            text_seq=args.seq, reduced=not args.full_size,
+            num_layers=args.layers)
+    cfg = model.cfg
+    split = args.split_backward or args.schedule == "zb"
+    hint = HintKind(args.hint)
+    chaos = parse_chaos(args.chaos) if args.chaos else None
+    spec = cfg.spec(args.microbatches, split_backward=split)
+    if args.schedule == "rrfp":
+        mode, fixed = "hint", "1f1b"
+        if split != (hint == HintKind.BFW):
+            raise SystemExit(
+                "--hint bfw and --split-backward go together (the BFW hint "
+                "needs W tasks, which only exist under split backward)")
+    elif args.schedule in ("1f1b", "gpipe", "zb"):
+        mode, fixed = "precommitted", args.schedule
+        if (args.schedule == "zb") != split:
+            raise SystemExit("--schedule zb is the split-backward baseline; "
+                             "1f1b/gpipe are fused-only")
+    else:
+        raise SystemExit(
+            f"--workload multimodal supports schedules rrfp/1f1b/gpipe/zb, "
+            f"not {args.schedule!r}")
+    acfg = ActorConfig(mode=mode, hint=hint, fixed_order=fixed,
+                       w_defer_cap=args.w_defer_cap,
+                       deadlock_timeout=args.deadlock_timeout,
+                       chaos=chaos, seed=args.seed)
+    print(f"arch={args.arch} workload=multimodal modality={cfg.modality}  "
+          f"substrate={args.substrate}  mode={mode}  hint={hint.value}  "
+          f"split_backward={split}\n"
+          f"  DAG: encoder x{cfg.enc_stages} | text | fusion + LM x"
+          f"{cfg.lm_stages - 1}  edges={cfg.stage_graph().edges}  "
+          f"buckets={cfg.buckets}")
+    run = TrainRun(losses=[], step_seconds=[])
+
+    if args.substrate == "sim":
+        # cost model from the FULL-SIZE arch (simulated timing reflects the
+        # real widths even when the thread path runs reduced)
+        cost_cfg = multimodal_config(
+            args.arch, enc_stages=enc_stages, lm_stages=lm_stages,
+            text_seq=max(args.seq, 512), mean_enc_tokens=2048,
+            buckets=(1024, 2048, 4096), reduced=False)
+        costs = multimodal_dag_costs(cost_cfg, mb_rows=args.mb_rows,
+                                     seed=args.seed)
+        for step in range(args.steps):
+            record_this = step == 0 and bool(args.record_trace)
+            cfg_i = dataclasses.replace(acfg, seed=args.seed + 1000 * step,
+                                        record_trace=record_this)
+            driver = ActorDriver(spec, costs, cfg_i)
+            res = driver.run()
+            if record_this:
+                driver.trace.meta["step"] = step
+                driver.trace.save(args.record_trace)
+                print(f"recorded step-0 trace "
+                      f"({len(driver.trace.events)} events) "
+                      f"-> {args.record_trace}")
+            bd = res.breakdown()
+            run.makespans.append(res.makespan)
+            print(f"step {step:4d}  makespan {res.makespan*1e3:8.2f} ms  "
+                  f"compute {bd['compute']*1e3:7.2f} ms  "
+                  f"blocking {bd['blocking']*1e3:7.2f} ms")
+        return run
+
+    # ---- thread substrate: real DAG training on the device -------------
+    device = resolve_device(args.device)
+    if init_params is None:
+        params = model.init_stage_params(seed=args.seed, device=device)
+    else:
+        params = init_params(model, device)
+    tokens = args.microbatches * args.mb_rows * cfg.text_seq
+    fns = MultimodalStageFns(model, MultimodalStageOptions(
+        mb_rows=args.mb_rows, loss_scale=1.0 / tokens))
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps),
+                          total_steps=max(args.steps, 1))
+    flat = [t for sp in params for t in sp.parameters()]
+    mstate = [torch.zeros(t.shape, dtype=torch.float32, device=device)
+              for t in flat]
+    vstate = [torch.zeros(t.shape, dtype=torch.float32, device=device)
+              for t in flat]
+    apply_update = make_host_update(opt_cfg)
+    print(f"  N={sum(t.numel() for t in flat):,} params  stages="
+          f"{cfg.num_stages}  microbatches={args.microbatches}  "
+          f"device={device}")
+    for step in range(args.steps):
+        batch = _device_mm_batch(
+            multimodal_batch(cfg, args.microbatches, args.mb_rows,
+                             seed=args.seed, step=step), device)
+        programs = [
+            MultimodalStageProgram(fns, s, params[s], batch,
+                                   split_backward=split)
+            for s in range(cfg.num_stages)
+        ]
+        t0 = time.perf_counter()
+        record_this = step == 0 and bool(args.record_trace)
+        driver = ActorDriver(
+            spec, None,
+            dataclasses.replace(acfg, record_trace=True) if record_this
+            else acfg)
+        result = driver.run_threaded(list(programs))
+        grads = [g for p in programs for g in p.d_params]
+        lr = apply_update(flat, grads, mstate, vstate, step)
+        # one device sync per step: the programs keep the loss on device
+        loss = float(sum(p.loss_acc for p in programs)) / tokens
+        dt = time.perf_counter() - t0
+        run.losses.append(loss)
+        run.step_seconds.append(dt)
+        if record_this:
+            driver.trace.meta["step"] = step
+            driver.trace.meta["final_loss"] = loss
+            driver.trace.save(args.record_trace)
+            print(f"recorded step-0 trace ({len(driver.trace.events)} "
+                  f"events) -> {args.record_trace}")
+        bd = result.breakdown()
+        print(f"step {step:4d}  loss {loss:8.4f}  lr {lr:.2e}  "
+              f"{dt*1e3:7.1f} ms  makespan {result.makespan*1e3:7.1f} ms  "
+              f"blocking {bd['blocking']*1e3:6.1f} ms")
+        if step_hook is not None:
+            step_hook(step)
+    return run
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="readiness-driven actor training (PyTorch port)")
-    ap.add_argument("--arch", default="deepseek-7b",
-                    help="architecture id (registry.ARCHS)")
+    ap.add_argument("--arch", default=None,
+                    help="architecture id (registry.ARCHS; default "
+                         "deepseek-7b, or qwen2-vl-2b for --workload "
+                         "multimodal)")
     ap.add_argument("--runtime", default="actor", choices=("table", "actor"),
                     help="actor: thread-per-stage readiness-driven runtime "
                          "(the port's only runtime so far)")
+    ap.add_argument("--workload", default="language",
+                    choices=("language", "multimodal"),
+                    help="language: linear-chain LM pipeline (default); "
+                         "multimodal: branch+fusion DAG pipeline (encoder "
+                         "branch || text frontend -> fusion -> LM chain) — "
+                         "archs qwen2-vl-2b / seamless-m4t-large-v2")
+    ap.add_argument("--substrate", default="thread",
+                    choices=("thread", "sim"),
+                    help="multimodal workload: thread = real stage "
+                         "callables (default); sim = virtual-clock actor "
+                         "substrate on the DAG cost model")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs CUDA")
     ap.add_argument("--stages", type=int, default=4)
@@ -269,6 +483,8 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> TrainRun:
     args = parser().parse_args(argv)
+    if args.workload == "multimodal":
+        args.runtime = "actor"  # the DAG only runs on the actor runtime
     if args.runtime == "table":
         raise SystemExit("--runtime table (the compiled schedule-table SPMD "
                          "executor) moves with the multi-device slice "
@@ -277,6 +493,8 @@ def main(argv=None) -> TrainRun:
         if getattr(args, dest) not in (None, False):
             raise SystemExit(f"{flag} is not in the port yet: it moves with "
                              f"ROADMAP.md queue 1, '{item}'")
+    if args.workload == "multimodal":
+        return train_multimodal(args)
     return train_actor(args)
 
 

@@ -192,7 +192,7 @@ class ArchModel:
 
         def attn_like(slot: LayerSlot, io, x, aux):
             return decoder_layer(slot.blk, x, aux["positions"], cfg,
-                                 window=window)
+                                 window=window, mrope_pos=aux.get("mrope"))
 
         return attn_like
 

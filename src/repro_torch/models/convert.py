@@ -9,7 +9,10 @@ The port's module names map onto those paths one-to-one:
     ``embed``                            <->  ``io['embed']``
     ``shared_blk.attn.wq``               <->  ``io['shared_blk']['attn']['wq']``
 
-so both frameworks can compute on identical weights.  Decode caches map the
+so both frameworks can compute on identical weights.  The multimodal
+DAG's per-stage trees load the same way, one module per stage
+(:func:`multimodal_params_from_reference`: ``layers.{i}.attn.wq`` of stage
+``s`` is ``params[s]['layers'][i]['attn']['wq']``).  Decode caches map the
 same way: the reference's stacked ``[num_stages, l_max, ...]`` cache tree
 becomes one tree per stage with ``[l_max, ...]`` leaves
 (:func:`cache_from_reference`).  Arrays arrive as
@@ -36,7 +39,7 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 def _leaf(tree: dict, dotted: str):
     node = tree
     for part in dotted.split("."):
-        node = node[part]
+        node = node[int(part)] if isinstance(node, list) else node[part]
     return node
 
 
@@ -87,3 +90,31 @@ def cache_from_reference(model: ArchModel, cache_np: dict, device
                                     device), cache, cache_np)
         stages.append(cache)
     return stages
+
+
+def multimodal_params_from_reference(model, stage_params_np: list[dict],
+                                     device) -> list:
+    """The port's per-stage modules of a ``MultimodalModel`` holding the
+    reference's per-stage parameter trees (dtypes and values unchanged; a
+    leaf of another dtype or shape raises)."""
+    stages = model.init_stage_params(seed=None, device=device)
+    with torch.no_grad():
+        for s, (sp, tree) in enumerate(zip(stages, stage_params_np,
+                                           strict=True)):
+            params = list(sp.named_parameters())
+            if len(params) != _count_leaves(tree):
+                raise TypeError(f"stage {s}: the reference tree has "
+                                f"{_count_leaves(tree)} leaves, the port's "
+                                f"module {len(params)} parameters")
+            for name, p in params:
+                _load(p, np.asarray(_leaf(tree, name)), f"stage {s} {name}",
+                      device)
+    return stages
+
+
+def _count_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_count_leaves(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_count_leaves(v) for v in tree)
+    return 1

@@ -100,12 +100,18 @@ def attention_qkv(p: Attention, x, cfg: ArchConfig):
 
 
 def attention_block(p: Attention, x, positions, cfg: ArchConfig, *,
-                    causal: bool = True, window: int = 0):
-    """Self-attention sub-block; the pre-norm residual is the caller's."""
-    if cfg.mrope:
+                    causal: bool = True, window: int = 0, mrope_pos=None):
+    """Self-attention sub-block; the pre-norm residual is the caller's.
+
+    As in the reference, an M-RoPE config rotates by its 3-axis positions
+    only when ``mrope_pos`` is given, and by plain RoPE otherwise (the
+    multimodal DAG's LM layers give none).
+    """
+    if cfg.mrope and mrope_pos is not None:
         raise NotImplementedError(
-            "M-RoPE (qwen2-vl) moves with the other-families slice "
-            "(ROADMAP queue 1)")
+            "M-RoPE positions (qwen2-vl's 3-axis rotary) are not in the "
+            "port yet: apply_mrope moves with the other-families slice "
+            "(ROADMAP.md queue 1, item 16)")
     q, k, v = attention_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -152,10 +158,10 @@ class DecoderLayer(nn.Module):
 
 
 def decoder_layer(p: DecoderLayer, x, positions, cfg: ArchConfig, *,
-                  causal: bool = True, window: int = 0):
+                  causal: bool = True, window: int = 0, mrope_pos=None):
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     x = x + attention_block(p.attn, h, positions, cfg, causal=causal,
-                            window=window)
+                            window=window, mrope_pos=mrope_pos)
     h = rmsnorm(x, p.ln2, cfg.norm_eps)
     return x + ffn_block(p.ffn, h, cfg.act)
 

@@ -103,7 +103,10 @@ class StageFns:
         seq = self.opts.seq_len
         device = bm["labels"].device
         pos = torch.arange(seq, dtype=torch.int32, device=device)
-        return {"positions": pos[None].expand(self.opts.mb_rows, seq)}
+        a = {"positions": pos[None].expand(self.opts.mb_rows, seq)}
+        if "mrope" in bm:
+            a["mrope"] = bm["mrope"]
+        return a
 
     def _embed(self, io, bm: dict):
         cfg = self.model.cfg

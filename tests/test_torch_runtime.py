@@ -154,6 +154,10 @@ def test_port_imports_neither_jax_nor_repro():
         "             m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert len(names) > 30, names\n"
+        "for want in ('multimodal.model', 'multimodal.stagefn',\n"
+        "             'multimodal.costs', 'runtime.rrfp.conformance',\n"
+        "             'core.bounds', 'data.synthetic'):\n"
+        "    assert 'repro_torch.' + want in names, want\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)], env=env,
