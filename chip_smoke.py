@@ -40,7 +40,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    zeroed just before each run and read just after; every kernel of the
    path must have launched in each, a serve run exactly as often as its
    layers give, and one more decode pass after a serve run must give
-   finite logits.
+   finite logits;
+6. right after the language main paths (``phase_runtime_flags``), the
+   runtime flags on paper-gpt3-large full size: telemetry
+   (``--metrics-report``, ``--explain``, ``--export-perfetto``, its step
+   time against runs without it, in turns), a checkpoint write and
+   ``--resume``, ``--recover`` from a killed stage (live params, then a
+   checkpoint), and the adaptive hint loop, each held against its unfailed
+   or uninterrupted run (bitwise, or within the spread of two identical
+   runs, printed).  It needs about 12 GB of free disk under the temporary
+   directory for one 10 GB checkpoint, removed at the end.
 
 The last three lines are the card, the per-kernel JSON record and the
 result JSON.  A copy of the record goes to ``chiprun_out/chip_smoke.json``.
@@ -942,6 +951,226 @@ def phase_main_path():
     return runs
 
 
+#: the runs of phase_runtime_flags: paper-gpt3-large, full size, COMMON_ARGS
+GPT3_ARGS = ["--arch", "paper-gpt3-large"] + COMMON_ARGS
+FIXED_ORDER = ["--schedule", "1f1b"]
+#: --hb-deadline of the recovery runs.  Their faults are kills, which
+#: announce themselves: the deadline only arms the stall watchdog (no stage
+#: stalls here) and sets the recovery coordinator's poll, hb/4, which a
+#: step under --recover may wait out once at its end
+HB_DEADLINE = "2.0"
+#: free disk the checkpoint runs need: one step directory of 834,086,400
+#: parameters x 4 bytes x 3 trees (params as float32, m, v) = 10.0 GB
+CKPT_FREE_BYTES = 12e9
+
+
+def phase_runtime_flags():
+    """The runtime flags of ``repro_torch.launch.train`` on paper-gpt3-large
+    (full size, GPT3_ARGS), each held against its unfailed or uninterrupted
+    run; K1 and K2 must launch in every run (counts zeroed just before and
+    read just after each).
+
+    * obs: ``--steps 6 --metrics-report --explain --export-perfetto``; the
+      export passes ``validate_chrome_trace`` and the recorded step-0 trace
+      ``check_all``.
+    * two identical unfailed ``1f1b`` runs (``--steps 2``) and, in turns
+      with them, two with ``--metrics-report``: the step times with and
+      without telemetry, and the identical-run spread that every equality
+      below is held to (0: bitwise).
+    * checkpoint: ``--steps 3 --ckpt-every 2`` saves once, at step 2 (10 GB,
+      in a temporary directory removed at the end); ``--resume`` runs step 2
+      from it and must give the writer's step-2 loss.
+    * recovery: a ``kill`` of stage 1 under ``--recover`` (respawned from
+      the live step-start params) against the unfailed run, and a kill of
+      stage 2 under ``--resume --recover`` (respawned through
+      ``restore_host`` of the checkpoint) against the writer's step 2; the
+      recovery windows come from the recorded traces, which pass
+      ``check_all``.
+    * adaptive: ``--steps 6 --adaptive --resynth-every 1`` (rrfp, hint bf)
+      within TOL["bfloat16"] of the obs run (the same flags without
+      ``--adaptive``), ``check_all`` (table faithfulness included) on its
+      step-0 trace; the scheduler's decisions and swaps are printed.
+    """
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.taskgraph import PipelineSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.runtime.rrfp import ActorConfig
+    from repro_torch.runtime.rrfp.conformance import check_all
+
+    runs = {}
+    spec = PipelineSpec(4, 8)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+
+    def launch(name, extra):
+        argv = GPT3_ARGS + extra
+        print(f"runtime flags ({name}): python -m repro_torch.launch.train "
+              + " ".join(argv))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        run = train.main(argv)
+        counts = ops.launch_counts()
+        mem = torch.cuda.max_memory_allocated()
+        print(f"  losses {run.losses}  step seconds {run.step_seconds}  "
+              f"launches {counts}  peak memory {mem / 2**30:.2f} GiB")
+        if not run.losses or not all(math.isfinite(x) for x in run.losses):
+            raise AssertionError(f"the {name} run gave losses {run.losses}")
+        missing = [k for k in ("flash_attention_fwd", "rmsnorm")
+                   if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"the {name} run launched no {missing}")
+        runs["paper-gpt3-large", name] = (run, counts, mem)
+        torch.cuda.empty_cache()
+        return run
+
+    def outage(run, name):
+        windows = run.trace.recovery_windows()
+        if not windows:
+            raise AssertionError(f"the {name} run recorded no recovery")
+        for w in windows:
+            print(f"  recovery of stage {w['stage']}: outage (fail to back "
+                  f"in service) {w['t_end'] - w['t_fail']:.4f} s, detected "
+                  f"after {w['t_detect'] - w['t_fail']:.4f} s, epoch "
+                  f"{w['epoch_to']}, mode {w['mode']}")
+        check_all(run.trace, spec, ActorConfig(mode="precommitted"))
+        print(f"  check_all green on the {name} trace "
+              f"({len(run.trace.events)} events)")
+
+    try:
+        # -- observability ------------------------------------------------
+        perfetto = tmp / "step0.perfetto.json"
+        obs = launch("obs", ["--steps", "6", "--metrics-report", "--explain",
+                             "--export-perfetto", str(perfetto)])
+        doc = json.loads(perfetto.read_text())
+        validate_chrome_trace(doc)
+        check_all(obs.trace, spec, ActorConfig(mode="hint"))
+        print(f"  perfetto export valid ({len(doc['traceEvents'])} trace "
+              f"events); check_all green on the recorded step-0 trace "
+              f"({len(obs.trace.events)} events)")
+
+        # -- identical unfailed runs; telemetry on and off in turns --------
+        plain, metered = [], []
+        for i in (1, 2):
+            plain.append(launch(f"1f1b {i}", ["--steps", "2"] + FIXED_ORDER))
+            metered.append(launch(f"1f1b metrics-report {i}",
+                                  ["--steps", "2", "--metrics-report"]
+                                  + FIXED_ORDER))
+        spread = max(abs(a - b) for a, b in zip(plain[0].losses,
+                                                 plain[1].losses))
+        print(f"  two identical unfailed 1f1b runs: {plain[0].losses} vs "
+              f"{plain[1].losses}: "
+              + ("bitwise equal, so every gate below is bitwise"
+                 if spread == 0 else
+                 f"spread {spread!r}, the bound of every gate below"))
+
+        def gate(what, got, want):
+            d = max(abs(a - b) for a, b in zip(got, want, strict=True))
+            if d > spread:
+                raise AssertionError(f"{what}: {got} vs {want}, |diff| {d!r} "
+                                     f"> identical-run spread {spread!r}")
+            print(f"  {what}: {got} vs {want}: "
+                  + ("bitwise equal" if d == 0 else
+                     f"|diff| {d!r} <= identical-run spread {spread!r}"))
+
+        for run in metered:
+            gate("--metrics-report against the unfailed run", run.losses,
+                 plain[0].losses)
+        for k in range(2):
+            off = [r.step_seconds[k] for r in plain]
+            on = [r.step_seconds[k] for r in metered]
+            print(f"  step {k} seconds without --metrics-report {off}, with "
+                  f"{on}: overhead {sum(on) / 2 - sum(off) / 2:+.4f} s/step "
+                  f"(mean of 2 each)")
+
+        # -- checkpoint ----------------------------------------------------
+        free = shutil.disk_usage(tmp).free
+        if free < CKPT_FREE_BYTES:
+            raise AssertionError(f"{tmp}: {free / 1e9:.1f} GB free, the "
+                                 f"checkpoint runs need "
+                                 f"{CKPT_FREE_BYTES / 1e9:.0f} GB")
+        ckpt = str(tmp / "ckpt")
+        writer = launch("checkpoint write",
+                        ["--steps", "3", "--ckpt-dir", ckpt, "--ckpt-every",
+                         "2"] + FIXED_ORDER)
+        saves = [e for e in writer.ckpt_log if e["op"] == "save"]
+        if [e["step"] for e in saves] != [2]:
+            raise AssertionError(f"expected one save at step 2: {saves}")
+        print(f"  saved step 2: {saves[0]['bytes']:,} bytes in "
+              f"{saves[0]['seconds']:.3f} s "
+              f"({saves[0]['bytes'] / saves[0]['seconds'] / 1e9:.2f} GB/s)")
+        resumed = launch("resume", ["--steps", "3", "--ckpt-dir", ckpt,
+                                    "--resume"] + FIXED_ORDER)
+        (restore,) = [e for e in resumed.ckpt_log if e["op"] == "resume"]
+        print(f"  resume restored step {restore['step']} in "
+              f"{restore['seconds']:.3f} s")
+        gate("resumed step 2 against the writer's", resumed.losses,
+             writer.losses[2:])
+
+        # -- recovery ------------------------------------------------------
+        print(f"  --hb-deadline {HB_DEADLINE} s on the recovery runs")
+        killed = launch("recover kill",
+                        ["--steps", "2", "--chaos",
+                         "fail_stage=1,fail_kind=kill,fail_after=5",
+                         "--recover", "--hb-deadline", HB_DEADLINE,
+                         "--record-trace", str(tmp / "kill.trace.jsonl")]
+                        + FIXED_ORDER)
+        gate("kill + --recover against the unfailed run", killed.losses,
+             plain[0].losses)
+        outage(killed, "kill")
+        # --ckpt-every 2: no second 10 GB save at step 3 (--recover's
+        # default cadence is 1)
+        rr = launch("resume + recover",
+                    ["--steps", "3", "--resume", "--recover", "--chaos",
+                     "fail_stage=2,fail_after=3", "--ckpt-dir", ckpt,
+                     "--ckpt-every", "2", "--hb-deadline", HB_DEADLINE,
+                     "--record-trace", str(tmp / "rr.trace.jsonl")]
+                    + FIXED_ORDER)
+        gate("resume + kill + --recover against the writer's step 2",
+             rr.losses, writer.losses[2:])
+        for e in rr.ckpt_log:
+            print(f"  {e['op']} restore of step {e['step']}: "
+                  f"{e['seconds']:.3f} s")
+        if not any(e["op"] == "respawn" for e in rr.ckpt_log):
+            raise AssertionError("the respawn did not restore from the "
+                                 "checkpoint")
+        outage(rr, "resume + recover")
+        shutil.rmtree(ckpt)
+
+        # -- adaptive hint loop --------------------------------------------
+        ad = launch("adaptive", ["--steps", "6", "--adaptive",
+                                 "--resynth-every", "1", "--hint", "bf",
+                                 "--record-trace",
+                                 str(tmp / "adaptive.trace.jsonl")])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k, (a, b) in enumerate(zip(ad.losses, obs.losses, strict=True)):
+        if abs(a - b) > TOL["bfloat16"] * max(1.0, abs(b)):
+            raise AssertionError(f"adaptive step {k} loss {a} vs the plain "
+                                 f"rrfp run's {b}")
+    print(f"  adaptive losses {ad.losses} vs plain rrfp {obs.losses}: agree "
+          f"within {TOL['bfloat16']:g} (relative)")
+    if not any(ev.info.get("path") == "table" for ev in ad.trace.events
+               if ev.kind == "dispatch"):
+        raise AssertionError("the adaptive step-0 trace has no table-path "
+                             "dispatch")
+    check_all(ad.trace, spec, ActorConfig(mode="hint"))
+    print("  check_all (table faithfulness included) green on the adaptive "
+          "step-0 trace")
+    sched = ad.scheduler
+    for d in sched.decisions:
+        print(f"  decision {json.dumps(d.to_json())}")
+    print(f"  adaptive swaps: {len(sched.swaps)} at steps {sched.swaps} "
+          f"(table v{sched.version})"
+          + ("" if sched.swaps else ": no swap fired on these costs"))
+    return runs
+
+
 def phase_multimodal_path():
     """The multimodal main path through ``repro_torch.launch.train
     --workload multimodal`` (MM_ARGS): hint bf for 3 steps, then bfw for 2;
@@ -1120,6 +1349,7 @@ def main(argv=None) -> int:
     phase_small_serve()
     runs = phase_main_path()
     torch.cuda.empty_cache()
+    runs.update(phase_runtime_flags())
     runs.update(phase_multimodal_path())
     runs.update(phase_serve_path())
     kernels = []

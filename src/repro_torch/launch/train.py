@@ -24,22 +24,44 @@ cost model:
     PYTHONPATH=src python -m repro_torch.launch.train --workload multimodal \
         --full-size --stages 4 --microbatches 8 --seq 2048 --steps 3
 
+Every flag of the reference's single-device actor launcher is here:
+telemetry (``--metrics-report``, ``--export-perfetto``, ``--explain``),
+checkpoints in the reference's format (``--ckpt-dir``, ``--ckpt-every``,
+``--resume``), fail-stop recovery (``--recover``, ``--hb-deadline``: a
+``--chaos fail_stage=...`` death respawns the stage from the latest
+checkpoint or the live step-start parameters), and the adaptive hint loop
+(``--adaptive``, ``--resynth-every``, ``--swap-threshold``).  Where the
+reference silently ignores a flag (``--ckpt-dir`` under ``--workload
+multimodal``, ``--resume`` without ``--ckpt-dir``, the adaptive knobs
+without ``--adaptive``), the port stops and says so.  ``--runtime table``
+moves with the multi-device slice.
+
 Runs on the GPU unless ``--device cpu`` is given; without CUDA it raises.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
+from typing import Any
 
 import torch
 
+from repro_torch.ckpt.store import CheckpointStore
 from repro_torch.configs import registry
 from repro_torch.core.costs import CostModel
 from repro_torch.core.hints import HintKind
 from repro_torch.core.taskgraph import PipelineSpec
 from repro_torch.data.synthetic import multimodal_batch, synth_batch
 from repro_torch.models.build import build
+from repro_torch.models.convert import (
+    params_from_reference,
+    params_to_reference,
+    reference_layout,
+    state_from_reference,
+    state_to_reference,
+)
 from repro_torch.multimodal import (
     MULTIMODAL_ARCHS,
     MultimodalStageFns,
@@ -49,33 +71,19 @@ from repro_torch.multimodal import (
     multimodal_model,
 )
 from repro_torch.multimodal.stagefn import MultimodalStageOptions
+from repro_torch.obs import MetricsRegistry, export_perfetto
+from repro_torch.obs.report import explain
 from repro_torch.optim.adamw import AdamWConfig, make_host_update
 from repro_torch.pipeline.stagefn import (
     ActorStageProgram,
     StageFnOptions,
     StageFns,
 )
+from repro_torch.runtime.adaptive import AdaptiveConfig, AdaptiveScheduler
 from repro_torch.runtime.rrfp import ActorConfig, ActorDriver, Trace, parse_chaos
 from repro_torch.runtime.straggler import StragglerMonitor
 
 SCHEDULES = ("gpipe", "1f1b", "zb", "rrfp")
-
-#: flags of the reference's launcher that later slices bring, with the
-#: ROADMAP.md queue-1 item that ports them
-DEFERRED_FLAGS = {
-    "recover": ("--recover", "Recovery"),
-    "hb_deadline": ("--hb-deadline", "Recovery"),
-    "adaptive": ("--adaptive", "Adaptive schedule loop"),
-    "resynth_every": ("--resynth-every", "Adaptive schedule loop"),
-    "swap_threshold": ("--swap-threshold", "Adaptive schedule loop"),
-    "metrics_report": ("--metrics-report", "Observability"),
-    "export_perfetto": ("--export-perfetto", "Observability"),
-    "explain": ("--explain", "Observability"),
-    "ckpt_dir": ("--ckpt-dir", "Checkpoints"),
-    "ckpt_every": ("--ckpt-every", "Checkpoints"),
-    "resume": ("--resume", "Checkpoints"),
-}
-
 
 @dataclasses.dataclass
 class TrainRun:
@@ -83,6 +91,14 @@ class TrainRun:
     step_seconds: list[float]
     #: ``--substrate sim``: the simulated makespan of each step (s)
     makespans: list[float] = dataclasses.field(default_factory=list)
+    #: the first step's recorded trace (``--record-trace``,
+    #: ``--export-perfetto`` or ``--explain``), else None
+    trace: Any = None
+    #: ``--adaptive``: the run's ``AdaptiveScheduler``
+    scheduler: Any = None
+    #: checkpoint I/O: one dict per save, resume or respawn restore
+    #: (``op``, ``step``, ``seconds``, and ``bytes`` for a save)
+    ckpt_log: list[dict] = dataclasses.field(default_factory=list)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -104,6 +120,95 @@ def _device_batch(arrays: dict, device) -> dict:
             t = t.long()
         out[k] = t.to(device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# observability (--metrics-report / --export-perfetto / --explain)
+# ---------------------------------------------------------------------------
+def _obs_registry(args):
+    """A MetricsRegistry when ``--metrics-report`` asked for one, else None
+    (None keeps the runtime's metrics hooks at their zero-cost path)."""
+    return MetricsRegistry() if args.metrics_report else None
+
+
+def _obs_record_step0(args, step: int, first: int = 0) -> bool:
+    """Record the first step's trace when any end-of-run consumer needs
+    it (Perfetto export, the --explain health report, or --record-trace)."""
+    return step == first and (bool(args.record_trace)
+                              or bool(args.export_perfetto)
+                              or bool(args.explain))
+
+
+def _obs_finish(args, registry, trace) -> None:
+    """End-of-run sync point: print the summary table, export Perfetto."""
+    if registry is not None and args.metrics_report:
+        print("\nper-stage metrics (accumulated over all steps):")
+        print(registry.report())
+    if args.export_perfetto:
+        if trace is None:
+            raise SystemExit(
+                "--export-perfetto: no trace was recorded to export")
+        export_perfetto(trace, args.export_perfetto)
+        print(f"perfetto export ({len(trace.events)} events) -> "
+              f"{args.export_perfetto}  (open at ui.perfetto.dev)")
+    if args.explain:
+        if trace is None:
+            raise SystemExit(
+                "--explain: no trace was recorded to analyze")
+        print("\n" + explain(trace).format())
+
+
+def _save_trace(args, driver, step: int, loss: float | None):
+    """Stamp the recorded step's trace, save it under --record-trace, and
+    return it for the end-of-run consumers."""
+    trace = driver.trace
+    trace.meta["step"] = step
+    if loss is not None:
+        trace.meta["final_loss"] = loss
+    if args.record_trace:
+        trace.save(args.record_trace)
+        print(f"recorded step-0 trace ({len(trace.events)} events) "
+              f"-> {args.record_trace}")
+    return trace
+
+
+# ---------------------------------------------------------------------------
+# checkpoints (--ckpt-dir / --ckpt-every / --resume), in the reference's
+# tree: {"params": {"sp", "io"}, "m": {"sp", "io"}, "v": {"sp", "io"}}
+# ---------------------------------------------------------------------------
+def _ckpt_tree(model, stage_params, io_params, mstate, vstate) -> dict:
+    def pair(t):
+        return {"sp": t[0], "io": t[1]}
+
+    return {"params": pair(params_to_reference(model, stage_params,
+                                               io_params)),
+            "m": pair(state_to_reference(model, stage_params, io_params,
+                                         mstate)),
+            "v": pair(state_to_reference(model, stage_params, io_params,
+                                         vstate))}
+
+
+def _ckpt_target(model, stage_params, io_params, with_state: bool) -> dict:
+    """The restore target: meta tensors of the parameters' dtypes (float32
+    for ``m``/``v``)."""
+    sp, io = reference_layout(model, stage_params, io_params)
+    tree = {"params": {"sp": sp, "io": io}}
+    if with_state:
+        sp32, io32 = reference_layout(model, stage_params, io_params,
+                                      torch.float32)
+        tree["m"] = {"sp": sp32, "io": io32}
+        tree["v"] = {"sp": sp32, "io": io32}
+    return tree
+
+
+def _or(value, default):
+    """A flag's value, or its default when it was not given (None)."""
+    return default if value is None else value
+
+
+def _step_bytes(store: CheckpointStore, step: int) -> int:
+    d = os.path.join(store.dir, f"step_{step}")
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
 
 
 def train_actor(args, *, init_params=None, step_hook=None) -> TrainRun:
@@ -168,20 +273,69 @@ def train_actor(args, *, init_params=None, step_hook=None) -> TrainRun:
         raise SystemExit(
             f"--runtime actor supports schedules rrfp/1f1b/gpipe/zb, "
             f"not {args.schedule!r}")
+    metrics_reg = _obs_registry(args)
+    scheduler = None
+    if args.adaptive:
+        if mode != "hint":
+            raise SystemExit("--adaptive re-synthesizes the hint table; it "
+                             "requires --schedule rrfp")
+        if args.replay_trace:
+            raise SystemExit("--adaptive changes the hint table between "
+                             "steps; combining it with --replay-trace is "
+                             "undefined")
+        if metrics_reg is None:
+            metrics_reg = MetricsRegistry(args.stages)
+        # synthesis prices tables on an expected cost model; the registry's
+        # measured EWMAs (real stage timings) overwrite it cell by cell
+        base_costs = CostModel.uniform(args.stages)
+        if split:
+            base_costs = base_costs.with_split_backward()
+        scheduler = AdaptiveScheduler(
+            spec, base_costs,
+            AdaptiveConfig(resynth_every=_or(args.resynth_every, 1),
+                           swap_threshold=_or(args.swap_threshold, 1.03),
+                           hint=hint),
+            registry=metrics_reg)
     acfg = ActorConfig(mode=mode, hint=hint, fixed_order=fixed,
                        w_defer_cap=args.w_defer_cap,
                        deadlock_timeout=args.deadlock_timeout,
-                       chaos=chaos, replay=replay)
+                       chaos=chaos, recover=args.recover,
+                       hb_deadline=args.hb_deadline,
+                       replay=replay, metrics=metrics_reg)
 
-    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps),
-                          total_steps=max(args.steps, 1))
+    run = TrainRun(losses=[], step_seconds=[], scheduler=scheduler)
+    store = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
+    ckpt_every = _or(args.ckpt_every, 1 if args.recover else 10)
+    start_step = 0
+    if store and args.resume and store.latest_step() is not None:
+        start_step = store.latest_step()
+        t0 = time.perf_counter()
+        state, _ = store.restore(start_step, _ckpt_target(
+            model, stage_params, io_params, with_state=True))
+        stage_params, io_params = params_from_reference(
+            model, state["params"]["sp"], state["params"]["io"], device)
+        mstate, vstate = (
+            state_from_reference(model, stage_params, io_params,
+                                 state[k]["sp"], state[k]["io"], device)
+            for k in ("m", "v"))
+        del state
+        run.ckpt_log.append({"op": "resume", "step": start_step,
+                             "seconds": time.perf_counter() - t0})
+        print(f"resumed from step {start_step}")
+    else:
+        mstate = [torch.zeros(p.shape, dtype=torch.float32, device=device)
+                  for sp in (*stage_params, io_params)
+                  for p in sp.parameters()]
+        vstate = [torch.zeros_like(m) for m in mstate]
     params = [p for sp in stage_params for p in sp.parameters()]
     params += list(io_params.parameters())
-    mstate = [torch.zeros(p.shape, dtype=torch.float32, device=device)
-              for p in params]
-    vstate = [torch.zeros(p.shape, dtype=torch.float32, device=device)
-              for p in params]
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps),
+                          total_steps=max(args.steps, 1))
     apply_update = make_host_update(opt_cfg)
+    # restore target of a respawned stage (shapes and dtypes only)
+    respawn_target = (_ckpt_target(model, stage_params, io_params,
+                                   with_state=False)
+                      if store is not None else None)
 
     # The monitor re-synthesizes precommitted tables through the DES engine,
     # whose baseline orders model a fused backward — feed it the fused twin.
@@ -192,8 +346,7 @@ def train_actor(args, *, init_params=None, step_hook=None) -> TrainRun:
           f"mode={mode}  hint={hint.value}  split_backward={split}  "
           f"stages={args.stages}  microbatches={args.microbatches}  "
           f"device={device}")
-    run = TrainRun(losses=[], step_seconds=[])
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         batch = _device_batch(
             synth_batch(cfg, batch_size, args.seq, seed=args.seed, step=step),
             device)
@@ -202,12 +355,46 @@ def train_actor(args, *, init_params=None, step_hook=None) -> TrainRun:
                               split_backward=split)
             for s in range(args.stages)
         ]
+
+        def respawn(s, programs=programs, batch=batch):
+            # the stage's in-memory state died with it: rebuild its program
+            # from the latest checkpoint (under --ckpt-every 1 that is
+            # exactly the params this step started from) or, before the
+            # first checkpoint, from the live step-start params (the update
+            # runs in place only after the step)
+            sp_r, io_r = stage_params[s], io_params
+            if store is not None and store.latest_step() is not None:
+                t0 = time.perf_counter()
+                host, _ = store.restore_host(store.latest_step(),
+                                             respawn_target)
+                (sp_r,), io_r = params_from_reference(
+                    model, host["params"]["sp"], host["params"]["io"],
+                    device, stages=[s])
+                run.ckpt_log.append({"op": "respawn", "stage": s,
+                                     "step": store.latest_step(),
+                                     "seconds": time.perf_counter() - t0})
+                print(f"recover: stage {s} restored from checkpoint step "
+                      f"{store.latest_step()}")
+            programs[s] = ActorStageProgram(fns, s, sp_r, io_r, batch,
+                                            split_backward=split)
+            return programs[s]
+
         t0 = time.perf_counter()
-        record_this = step == 0 and bool(args.record_trace)
+        # recording costs lock traffic on the dispatch path: enable it only
+        # for the step whose trace is actually kept
+        record_this = _obs_record_step0(args, step, first=start_step)
+        acfg_step = (dataclasses.replace(acfg, respawn=respawn)
+                     if args.recover else acfg)
+        if scheduler is not None:
+            # iteration-boundary quiesce point: adopt the scheduler's
+            # current table (HINT_SWAP events mark mid-run adoptions only)
+            acfg_step = dataclasses.replace(
+                acfg_step, hint_table=scheduler.table,
+                hint_table_version=scheduler.version)
         driver = ActorDriver(
             spec, None,
-            dataclasses.replace(acfg, record_trace=True) if record_this
-            else acfg)
+            dataclasses.replace(acfg_step, record_trace=True) if record_this
+            else acfg_step)
         result = driver.run_threaded(programs)
         grads = [g for p in programs for g in p.d_stage]
         d_io = list(programs[0].d_io)
@@ -221,21 +408,40 @@ def train_actor(args, *, init_params=None, step_hook=None) -> TrainRun:
         run.losses.append(loss)
         run.step_seconds.append(dt)
         if record_this:
-            driver.trace.meta["step"] = step
-            driver.trace.meta["final_loss"] = loss
-            driver.trace.save(args.record_trace)
-            print(f"recorded step-0 trace ({len(driver.trace.events)} "
-                  f"events) -> {args.record_trace}")
+            run.trace = _save_trace(args, driver, step, loss)
         bd = result.breakdown()
         new_table = monitor.observe_result(result)
+        swap_note = ""
+        if scheduler is not None:
+            decision = scheduler.maybe_resynthesize(step)
+            if decision.swapped:
+                swap_note = (f"  [hint-swap v{scheduler.version} "
+                             f"ratio={decision.ratio:.3f}]")
         print(f"step {step:4d}  loss {loss:8.4f}  lr {lr:.2e}  "
               f"{dt*1e3:7.1f} ms  makespan {result.makespan*1e3:7.1f} ms  "
               f"blocking {bd['blocking']*1e3:6.1f} ms"
-              + ("  [replan]" if new_table is not None else ""))
+              + ("  [replan]" if new_table is not None else "")
+              + swap_note)
+        if store and (step + 1) % ckpt_every == 0:
+            t1 = time.perf_counter()
+            store.save(step + 1, _ckpt_tree(model, stage_params, io_params,
+                                            mstate, vstate),
+                       meta={"arch": args.arch, "step": step + 1})
+            nbytes = _step_bytes(store, step + 1)
+            run.ckpt_log.append({"op": "save", "step": step + 1,
+                                 "seconds": time.perf_counter() - t1,
+                                 "bytes": nbytes})
+            print(f"checkpoint step {step + 1}: {nbytes:,} bytes in "
+                  f"{run.ckpt_log[-1]['seconds']:.2f} s -> {args.ckpt_dir}")
         if step_hook is not None:
             step_hook(step)
     if monitor.replans:
         print(f"straggler monitor triggered {monitor.replans} replan(s)")
+    if scheduler is not None and scheduler.swaps:
+        print(f"adaptive scheduler swapped the hint table "
+              f"{len(scheduler.swaps)} time(s) at step(s) {scheduler.swaps} "
+              f"(table v{scheduler.version})")
+    _obs_finish(args, metrics_reg, run.trace)
     return run
 
 
@@ -319,10 +525,11 @@ def train_multimodal(args, *, model=None, init_params=None,
         raise SystemExit(
             f"--workload multimodal supports schedules rrfp/1f1b/gpipe/zb, "
             f"not {args.schedule!r}")
+    metrics_reg = _obs_registry(args)
     acfg = ActorConfig(mode=mode, hint=hint, fixed_order=fixed,
                        w_defer_cap=args.w_defer_cap,
                        deadlock_timeout=args.deadlock_timeout,
-                       chaos=chaos, seed=args.seed)
+                       chaos=chaos, seed=args.seed, metrics=metrics_reg)
     print(f"arch={args.arch} workload=multimodal modality={cfg.modality}  "
           f"substrate={args.substrate}  mode={mode}  hint={hint.value}  "
           f"split_backward={split}\n"
@@ -341,22 +548,19 @@ def train_multimodal(args, *, model=None, init_params=None,
         costs = multimodal_dag_costs(cost_cfg, mb_rows=args.mb_rows,
                                      seed=args.seed)
         for step in range(args.steps):
-            record_this = step == 0 and bool(args.record_trace)
+            record_this = _obs_record_step0(args, step)
             cfg_i = dataclasses.replace(acfg, seed=args.seed + 1000 * step,
                                         record_trace=record_this)
             driver = ActorDriver(spec, costs, cfg_i)
             res = driver.run()
             if record_this:
-                driver.trace.meta["step"] = step
-                driver.trace.save(args.record_trace)
-                print(f"recorded step-0 trace "
-                      f"({len(driver.trace.events)} events) "
-                      f"-> {args.record_trace}")
+                run.trace = _save_trace(args, driver, step, None)
             bd = res.breakdown()
             run.makespans.append(res.makespan)
             print(f"step {step:4d}  makespan {res.makespan*1e3:8.2f} ms  "
                   f"compute {bd['compute']*1e3:7.2f} ms  "
                   f"blocking {bd['blocking']*1e3:7.2f} ms")
+        _obs_finish(args, metrics_reg, run.trace)
         return run
 
     # ---- thread substrate: real DAG training on the device -------------
@@ -389,7 +593,7 @@ def train_multimodal(args, *, model=None, init_params=None,
             for s in range(cfg.num_stages)
         ]
         t0 = time.perf_counter()
-        record_this = step == 0 and bool(args.record_trace)
+        record_this = _obs_record_step0(args, step)
         driver = ActorDriver(
             spec, None,
             dataclasses.replace(acfg, record_trace=True) if record_this
@@ -403,17 +607,14 @@ def train_multimodal(args, *, model=None, init_params=None,
         run.losses.append(loss)
         run.step_seconds.append(dt)
         if record_this:
-            driver.trace.meta["step"] = step
-            driver.trace.meta["final_loss"] = loss
-            driver.trace.save(args.record_trace)
-            print(f"recorded step-0 trace ({len(driver.trace.events)} "
-                  f"events) -> {args.record_trace}")
+            run.trace = _save_trace(args, driver, step, loss)
         bd = result.breakdown()
         print(f"step {step:4d}  loss {loss:8.4f}  lr {lr:.2e}  "
               f"{dt*1e3:7.1f} ms  makespan {result.makespan*1e3:7.1f} ms  "
               f"blocking {bd['blocking']*1e3:6.1f} ms")
         if step_hook is not None:
             step_hook(step)
+    _obs_finish(args, metrics_reg, run.trace)
     return run
 
 
@@ -468,17 +669,83 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--replay-trace", default=None, metavar="PATH",
                     help="re-execute the per-stage dispatch order recorded "
                          "in PATH")
+    ap.add_argument("--metrics-report", action="store_true",
+                    help="collect runtime telemetry (repro_torch.obs "
+                         "metrics shards) and print the end-of-run "
+                         "per-stage summary table")
+    ap.add_argument("--export-perfetto", default=None, metavar="PATH",
+                    help="export the first step's trace as Chrome "
+                         "trace-event JSON (open at ui.perfetto.dev); "
+                         "implies recording that step")
+    ap.add_argument("--explain", action="store_true",
+                    help="print the critical-path health report of the "
+                         "first step's trace (binding bottleneck, what-if "
+                         "ranking, stragglers, bubble cross-check); implies "
+                         "recording that step")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="--schedule rrfp: close the schedule loop — "
+                         "accumulate measured per-stage timings, "
+                         "re-synthesize the hint table every "
+                         "--resynth-every steps, and swap it at the "
+                         "iteration boundary when the drift detector fires")
+    ap.add_argument("--resynth-every", type=int, default=None,
+                    help="--adaptive: drift-detector cadence in steps "
+                         "(default 1)")
+    ap.add_argument("--swap-threshold", type=float, default=None,
+                    help="--adaptive: required predicted-makespan "
+                         "improvement factor (active/candidate) before a "
+                         "check counts toward the swap hysteresis "
+                         "(default 1.03)")
+    ap.add_argument("--recover", action="store_true",
+                    help="treat a fail-stop fault (--chaos fail_stage=S"
+                         "[,fail_kind=kill|permanent_stall,fail_after=K]) "
+                         "as recoverable — detect the death, fence the "
+                         "stale epoch, respawn the stage from the latest "
+                         "checkpoint (--ckpt-dir) or the live step-start "
+                         "params, and replay its in-flight microbatches")
+    ap.add_argument("--hb-deadline", type=float, default=2.0,
+                    help="seconds without stage progress before a "
+                         "permanent stall is declared dead")
     ap.add_argument("--full-size", action="store_true")
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (the reference's npz format)")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="checkpoint cadence in steps (default 10; under "
+                         "--recover default 1, so the respawn path restores "
+                         "exactly the params the failed step started from)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --ckpt-dir")
     ap.add_argument("--seed", type=int, default=0)
-    # flags of the reference's launcher that later slices bring
-    for dest, (flag, _) in DEFERRED_FLAGS.items():
-        if dest in ("recover", "adaptive", "metrics_report", "explain",
-                    "resume"):
-            ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-        else:
-            ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     return ap
+
+
+def _check_flags(args) -> None:
+    """The reference's guards, and a stop where the reference would
+    silently ignore a flag."""
+    if args.recover and args.workload != "language":
+        raise SystemExit("--recover drives the thread-per-stage actor "
+                         "runtime; add --runtime actor (language workload)")
+    if args.adaptive and args.workload != "language":
+        raise SystemExit("--adaptive drives the thread-per-stage actor "
+                         "runtime; add --runtime actor (language workload)")
+    ckpt_flags = [f for f, on in (("--ckpt-dir", args.ckpt_dir),
+                                  ("--ckpt-every", args.ckpt_every is not None),
+                                  ("--resume", args.resume)) if on]
+    if ckpt_flags and args.workload == "multimodal":
+        raise SystemExit(f"{'/'.join(ckpt_flags)}: the multimodal workload "
+                         f"keeps no checkpoints (the reference's "
+                         f"train_multimodal never reads these flags)")
+    for flag, on in (("--ckpt-every", args.ckpt_every is not None),
+                     ("--resume", args.resume)):
+        if on and not args.ckpt_dir:
+            raise SystemExit(f"{flag} needs --ckpt-dir (the reference "
+                             f"ignores it without one)")
+    for flag, value in (("--resynth-every", args.resynth_every),
+                        ("--swap-threshold", args.swap_threshold)):
+        if value is not None and not args.adaptive:
+            raise SystemExit(f"{flag} tunes --adaptive (the reference "
+                             f"ignores it without)")
 
 
 def main(argv=None) -> TrainRun:
@@ -489,10 +756,7 @@ def main(argv=None) -> TrainRun:
         raise SystemExit("--runtime table (the compiled schedule-table SPMD "
                          "executor) moves with the multi-device slice "
                          "(ROADMAP.md queue 1, 'Multi-device, last')")
-    for dest, (flag, item) in DEFERRED_FLAGS.items():
-        if getattr(args, dest) not in (None, False):
-            raise SystemExit(f"{flag} is not in the port yet: it moves with "
-                             f"ROADMAP.md queue 1, '{item}'")
+    _check_flags(args)
     if args.workload == "multimodal":
         return train_multimodal(args)
     return train_actor(args)

@@ -337,9 +337,11 @@ class Trace:
     def to_perfetto(self) -> dict:
         """Chrome trace-event JSON view of this trace (Perfetto-loadable).
 
-        The exporter lives in the observability layer, which the port has
-        not taken over yet."""
-        raise NotImplementedError("ported with obs/ — see ROADMAP")
+        Delegates to :func:`repro_torch.obs.export.to_perfetto`; imported lazily
+        so the runtime layer does not depend on the observability layer."""
+        from repro_torch.obs.export import to_perfetto
+
+        return to_perfetto(self)
 
     def final_loss(self) -> float | None:
         return self.meta.get("final_loss")

@@ -166,8 +166,21 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(out.stdout.strip()) > 30
 
 
-def test_trace_perfetto_export_waits_for_the_obs_slice():
-    from repro_torch.runtime.rrfp import Trace
+def test_trace_perfetto_export_equals_the_reference():
+    """``Trace.to_perfetto`` delegates to the copied ``obs`` exporter: a
+    sim run's document equals the reference's and validates."""
+    from repro.obs import validate_chrome_trace as jvalidate
+    from repro_torch.obs import validate_chrome_trace
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trace(meta={}, events=[]).to_perfetto()
+    docs = []
+    for spec_cls, cost_cls, cfg_cls, driver_cls in (
+            (PipelineSpec, CostModel, ActorConfig, ActorDriver),
+            (JPipelineSpec, JCostModel, JActorConfig, JActorDriver)):
+        driver = driver_cls(spec_cls(3, 6), cost_cls.uniform(3),
+                            cfg_cls(mode="hint", seed=2, record_trace=True))
+        driver.run()
+        docs.append(driver.trace.to_perfetto())
+    validate_chrome_trace(docs[0])
+    jvalidate(docs[0])
+    assert docs[0] == docs[1]
+    assert any(e.get("ph") == "X" for e in docs[0]["traceEvents"])

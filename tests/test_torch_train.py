@@ -4,9 +4,9 @@ Same initial weights (the reference's, loaded by path), same synthetic
 batches: the 3-step loss trajectory of reduced paper-gpt3-large (2 stages,
 4 microbatches, seq 16) and of reduced zamba2 (Mamba layers and the shared
 attention block, seq 32) agrees within 1e-4, under hint bf and bfw.  Also:
-the deferred flags of the reference's launcher stop with the ROADMAP item
-that brings them, and without CUDA the launcher raises unless asked for
-the CPU.
+each runtime flag of the reference's launcher runs, or stops with the
+reference's guard (or, where the reference ignores the flag, says so), and
+without CUDA the launcher raises unless asked for the CPU.
 """
 import argparse
 import dataclasses
@@ -95,13 +95,68 @@ def test_zamba2_loss_trajectory_matches_reference_train_actor(hint,
     _check_trajectory(argv, falls=False)
 
 
-@pytest.mark.parametrize("flag", ["--recover", "--adaptive",
-                                  "--metrics-report", "--explain",
-                                  "--export-perfetto=x.json",
-                                  "--ckpt-dir=ck", "--resume"])
-def test_deferred_flags_name_their_roadmap_item(flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1"):
-        train.main(ARGS + [flag])
+MM = ["--workload", "multimodal", "--stages", "3", "--layers", "2",
+      "--microbatches", "2", "--seq", "16", "--steps", "1", "--device",
+      "cpu"]
+#: every flag of the reference's single-device actor launcher: (flags, the
+#: SystemExit message it raises, or None where it runs); {tmp} is a fresh
+#: directory
+RUNTIME_FLAGS = {
+    "metrics-report": (["--metrics-report"], None),
+    "export-perfetto": (["--export-perfetto", "{tmp}/t.perfetto.json"], None),
+    "explain": (["--explain"], None),
+    "ckpt-dir": (["--ckpt-dir", "{tmp}/ck"], None),
+    "ckpt-every": (["--ckpt-dir", "{tmp}/ck", "--ckpt-every", "1"], None),
+    "resume": (["--ckpt-dir", "{tmp}/ck", "--resume"], None),
+    "recover": (["--recover"], None),
+    "hb-deadline": (["--recover", "--hb-deadline", "1.5"], None),
+    "adaptive": (["--adaptive"], None),
+    "resynth-every": (["--adaptive", "--resynth-every", "2"], None),
+    "swap-threshold": (["--adaptive", "--swap-threshold", "1.1"], None),
+    # the reference's own guards
+    "adaptive-1f1b": (["--adaptive", "--schedule", "1f1b"],
+                      "requires --schedule rrfp"),
+    "adaptive-replay": (["--adaptive", "--replay-trace", "{tmp}/r.jsonl"],
+                        "combining it with --replay-trace"),
+    "recover-multimodal": (MM + ["--recover"], "--recover drives the "
+                           "thread-per-stage actor runtime"),
+    "adaptive-multimodal": (MM + ["--adaptive"], "--adaptive drives the "
+                            "thread-per-stage actor runtime"),
+    # where the reference silently ignores the flag
+    "ckpt-dir-multimodal": (MM + ["--ckpt-dir", "{tmp}/ck"],
+                            "keeps no checkpoints"),
+    "resume-alone": (["--resume"], "needs --ckpt-dir"),
+    "ckpt-every-alone": (["--ckpt-every", "2"], "needs --ckpt-dir"),
+    "resynth-every-alone": (["--resynth-every", "2"], "tunes --adaptive"),
+    "swap-threshold-alone": (["--swap-threshold", "1.1"], "tunes --adaptive"),
+}
+
+
+@pytest.mark.parametrize("case", list(RUNTIME_FLAGS))
+def test_runtime_flags_run_or_raise_the_reference_guard(case, tmp_path,
+                                                        capsys):
+    flags, guard = RUNTIME_FLAGS[case]
+    flags = [f.format(tmp=tmp_path) for f in flags]
+    base = [] if flags[:2] == MM[:2] else ARGS + ["--steps", "1"]
+    if case == "adaptive-replay":
+        train.main(base + ["--record-trace", f"{tmp_path}/r.jsonl"])
+    if guard is not None:
+        with pytest.raises(SystemExit, match=guard):
+            train.main(base + flags)
+        return
+    run = train.main(base + flags)
+    assert len(run.losses) == 1 and np.isfinite(run.losses[0])
+    out = capsys.readouterr().out
+    if case == "metrics-report":
+        assert "per-stage metrics" in out
+    elif case == "export-perfetto":
+        assert (tmp_path / "t.perfetto.json").stat().st_size > 0
+    elif case == "explain":
+        assert "makespan explained" in out
+    elif case == "ckpt-every":
+        assert [e["op"] for e in run.ckpt_log] == ["save"]
+    elif case in ("adaptive", "resynth-every", "swap-threshold"):
+        assert len(run.scheduler.decisions) == 1
 
 
 def test_runtime_table_is_deferred_to_the_multi_device_slice():
