@@ -23,24 +23,31 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 4. an end-to-end check on a small input per main path: the port's model
    forward on the card (kernels) against the same weights on the CPU
    (plain versions), at the arch's full widths (gemma3-4b too, for K1 at
-   head_dim 256); one multimodal DAG step (forward and backward, every
-   gradient compared); and the same for serving: seamless with 2 + 2
-   layers, 4 greedy tokens, then one more pass whose last hidden state is
-   compared;
-5. the main paths, each through ``repro_torch.launch.train`` (actor
-   training, full size, 4 stages, 8 microbatches of 1 x 2048 tokens):
-   ``paper-gpt3-large`` hint bf for 3 steps, then ``--hint bfw
+   head_dim 256; deepseek-moe-16b's dense and MoE layers, xlstm-350m's
+   7 mLSTM + 1 sLSTM layers at 320 tokens, qwen2-vl-2b with three
+   distinct M-RoPE streams); one multimodal DAG step (forward and
+   backward, every gradient compared); and the same for serving: seamless
+   with 2 + 2 layers, 4 greedy tokens, then one more pass whose last
+   hidden state is compared;
+5. the main paths, each through ``repro_torch.launch.train_actor`` (actor
+   training, full width, 4 stages, 8 microbatches of 1 x 2048 tokens,
+   bf16): ``paper-gpt3-large`` hint bf for 3 steps, then ``--hint bfw
    --split-backward`` for 2; ``zamba2-1.2b`` bf for 3 steps, then bfw for
-   1; the multimodal DAG (``--workload multimodal``, qwen2-vl-2b full
-   width) bf for 3 steps, bfw for 2, and 2 bf steps with the reference's
-   full-size encoder settings (encoder microbatches of ~2048 tokens); then
-   ``repro_torch.launch.serve`` (full size, 4 stages, batch 8,
-   cache 4096): ``seamless-m4t-large-v2`` for 32 tokens (the path of K3),
-   ``zamba2-1.2b`` and ``paper-gpt3-large`` for 8.  The launch counts are
-   zeroed just before each run and read just after; every kernel of the
-   path must have launched in each, a serve run exactly as often as its
-   layers give, and one more decode pass after a serve run must give
-   finite logits;
+   1; ``deepseek-moe-16b`` cut to 4 layers (``cfg=registry.cut_depth``:
+   the dense layer and 3 MoE layers) bf for 3, bfw for 2; the language
+   ``qwen2-vl-2b`` (M-RoPE) bf for 2, bfw for 1; ``xlstm-350m`` cut to 8
+   layers bf for 1; the multimodal DAG (``--workload
+   multimodal``, qwen2-vl-2b full width) bf for 3 steps, bfw for 2, and 2
+   bf steps with the reference's full-size encoder settings (encoder
+   microbatches of ~2048 tokens); then ``repro_torch.launch.serve`` (full
+   width, batch 8, cache 4096): ``seamless-m4t-large-v2`` for 32 tokens
+   (the path of K3), ``zamba2-1.2b``, ``paper-gpt3-large``,
+   ``deepseek-moe-16b`` (4 layers), ``xlstm-350m`` and ``qwen2-vl-2b`` on 4
+   stages and ``grok-1-314b`` (2 layers, 2 stages) for 8.  The launch
+   counts are zeroed just before each run and read just after; every
+   kernel of the path must have launched in each, a serve run exactly as
+   often as its layers give, and one more decode pass after a serve run
+   must give finite logits;
 6. right after the language main paths (``phase_runtime_flags``), the
    runtime flags on paper-gpt3-large full size: telemetry
    (``--metrics-report``, ``--explain``, ``--export-perfetto``, its step
@@ -81,6 +88,7 @@ ATTN_SHAPES = [
     (1, 2048, 16, 16, 96, 0),
     (1, 2048, 32, 32, 64, 0),
     (1, 2048, 12, 2, 128, 0),
+    (1, 2048, 16, 16, 128, 0),
     (1, 2052, 12, 2, 128, 0),
     (1, 128, 4, 4, 64, 0),
     (2, 200, 8, 2, 64, 0),
@@ -133,22 +141,49 @@ PATH_SHAPES = {
         "ssd": []},
     "gemma3-4b": {"attn": [(1, 2048, 8, 4, 256, 1024)], "norm": [],
                   "ssd": []},
+    "deepseek-moe-16b": {"attn": [(1, 2048, 16, 16, 128, 0)],
+                         "norm": [(2048, 2048)], "ssd": []},
+    "qwen2-vl-2b": {"attn": [(1, 2048, 12, 2, 128, 0)],
+                    "norm": [(2048, 1536)], "ssd": []},
+    "xlstm-350m": {"attn": [], "norm": [(2048, 1024)], "ssd": []},
+    "grok-1-314b serve": {"attn": [], "norm": [(1, 6144)], "ssd": []},
 }
 
 COMMON_ARGS = ["--runtime", "actor", "--full-size", "--stages", "4",
                "--microbatches", "8", "--mb-rows", "1", "--seq", "2048",
                "--device", "cuda"]
 BFW = ["--hint", "bfw", "--split-backward"]
-#: (arch, [(run name, extra flags)], kernels every run must launch)
+#: (arch, [(run name, extra flags)], kernels every run must launch, layers:
+#: None for the full depth, else the full-width config cut to that many,
+#: ``registry.cut_depth``, through ``train_actor(args, cfg=...)``)
 MAIN_PATHS = [
     ("paper-gpt3-large",
      [("bf", ["--steps", "3", "--hint", "bf"]),
       ("bfw", ["--steps", "2"] + BFW)],
-     ("flash_attention_fwd", "rmsnorm")),
+     ("flash_attention_fwd", "rmsnorm"), None),
     ("zamba2-1.2b",
      [("bf", ["--steps", "3", "--hint", "bf"]),
       ("bfw", ["--steps", "1"] + BFW)],
-     ("flash_attention_fwd", "rmsnorm", "ssd_scan")),
+     ("flash_attention_fwd", "rmsnorm", "ssd_scan"), None),
+    # the dense first layer and 3 MoE layers, one per stage: 2.27e9
+    # parameters at ~14 B each on the card (bf16 weights and grads, float32
+    # m and v); the 28 layers do not fit one card
+    ("deepseek-moe-16b",
+     [("bf", ["--steps", "3", "--hint", "bf"]),
+      ("bfw", ["--steps", "2"] + BFW)],
+     ("flash_attention_fwd", "rmsnorm"), 4),
+    # the language workload: embeddings in, M-RoPE positions (synth_batch's
+    # three equal streams), 28 layers
+    ("qwen2-vl-2b",
+     [("bf", ["--steps", "2", "--hint", "bf"]),
+      ("bfw", ["--steps", "1"] + BFW)],
+     ("flash_attention_fwd", "rmsnorm"), None),
+    # 7 mLSTM + 1 sLSTM layers (the 7:1 pattern's first block), bf for 1
+    # step: the sLSTM's time loop is host-bound, 51-58 s a step with one
+    # sLSTM layer on one H100 80GB HBM3 at 700 W (bfw 89 s); the full
+    # depth holds three, and a stage waited past the 120 s deadlock guard
+    ("xlstm-350m", [("bf", ["--steps", "1", "--hint", "bf"])],
+     ("rmsnorm",), 8),
 ]
 #: the multimodal DAG (qwen2-vl-2b full width, 2 layers per stage: 1
 #: encoder stage, the text stage, fusion + 1 LM stage) through the launcher
@@ -161,10 +196,14 @@ MM_REAL_ENCODER = dict(text_seq=512, mean_enc_tokens=2048,
                        buckets=(1024, 2048, 4096))
 SERVE_ARGS = ["--full-size", "--stages", "4", "--batch", "8", "--cache-len",
               "4096", "--device", "cuda"]
-#: (arch, tokens): the serve runs; each must launch its kernels exactly as
-#: often as ``serve_launches`` counts from its layers
-SERVE_PATHS = [("seamless-m4t-large-v2", 32), ("zamba2-1.2b", 8),
-               ("paper-gpt3-large", 8)]
+#: (arch, tokens, layers, stages): the serve runs (layers None: full
+#: depth; else ``registry.cut_depth``); each must launch its kernels exactly
+#: as often as ``serve_launches`` counts from its layers.  grok-1-314b has
+#: 4.9e9 parameters a layer: 2 layers in bf16 on 2 stages (~23 GB)
+SERVE_PATHS = [("seamless-m4t-large-v2", 32, None, 4),
+               ("zamba2-1.2b", 8, None, 4), ("paper-gpt3-large", 8, None, 4),
+               ("deepseek-moe-16b", 8, 4, 4), ("grok-1-314b", 8, 2, 2),
+               ("xlstm-350m", 8, None, 4), ("qwen2-vl-2b", 8, None, 4)]
 
 
 def check_no_spills(log: str, entry: str) -> int:
@@ -665,12 +704,42 @@ def small_config(arch: str, layers: int):
                                dtype=torch.float32)
 
 
+#: (arch, layers, tokens) of the small-input forwards
+SMALL_MODELS = [("paper-gpt3-large", 2, 256), ("zamba2-1.2b", 3, 256),
+                ("gemma3-4b", 6, 256), ("deepseek-moe-16b", 2, 256),
+                ("xlstm-350m", 8, 320), ("qwen2-vl-2b", 2, 256)]
+
+
+def small_inputs(cfg, s: int) -> tuple[dict, dict]:
+    """CPU (batch, aux) of one row of ``s`` tokens: token ids or, for an
+    ``embed_input`` arch, embeddings; three distinct M-RoPE streams (a
+    time index and a patch grid) for an M-RoPE arch."""
+    import torch
+
+    rng = torch.Generator().manual_seed(5)
+    batch = ({"embeds": torch.randn((1, s, cfg.d_model), generator=rng)}
+             if cfg.embed_input else
+             {"tokens": torch.randint(0, cfg.vocab_size, (1, s),
+                                      generator=rng)})
+    aux = {"positions": torch.arange(s)[None]}
+    if cfg.mrope:
+        aux["mrope"] = torch.stack([
+            torch.arange(s)[None] // 4,
+            torch.randint(0, 16, (1, s), generator=rng),
+            torch.randint(0, 16, (1, s), generator=rng)])
+    return batch, aux
+
+
 def phase_small_model():
     """The port's forward on the card (kernels) against the CPU (plain
-    versions) on identical weights, float32, 256 tokens, full widths:
+    versions) on identical weights, float32, full widths (SMALL_MODELS):
     paper-gpt3-large with 2 layers; zamba2-1.2b with 3 Mamba layers on 2
     stages (a shared-block slot and a disabled slot); gemma3-4b with 6
-    layers, five local and one global (K1 at head_dim 256)."""
+    layers, five local and one global (K1 at head_dim 256);
+    deepseek-moe-16b's dense and first MoE layer; xlstm-350m's first 8
+    layers (7 mLSTM, 1 sLSTM) at 320 tokens, past the parallel form's 256
+    (the chunked form); qwen2-vl-2b with 2 layers, embeddings in and three
+    distinct M-RoPE streams."""
     import copy
 
     import torch
@@ -678,31 +747,27 @@ def phase_small_model():
     from repro_torch.models.build import build
 
     print("small-input forward, card (kernels) vs CPU (plain), float32:")
-    for arch, layers in (("paper-gpt3-large", 2), ("zamba2-1.2b", 3),
-                         ("gemma3-4b", 6)):
+    for arch, layers, s in SMALL_MODELS:
         cfg = small_config(arch, layers)
         model = build(cfg, num_stages=2)
-        sp_cpu = [model.init_stage_params(s, seed=3, device="cpu")
-                  for s in range(2)]
+        sp_cpu = [model.init_stage_params(i, seed=3, device="cpu")
+                  for i in range(2)]
         io_cpu = model.init_io_params(seed=3, device="cpu")
         sp_gpu = [copy.deepcopy(sp).to("cuda") for sp in sp_cpu]
         io_gpu = copy.deepcopy(io_cpu).to("cuda")
-        rng = torch.Generator().manual_seed(5)
-        tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=rng)
-        pos = torch.arange(256)[None]
+        batch, aux = small_inputs(cfg, s)
         with torch.no_grad():
-            want = model.reference_forward(sp_cpu, io_cpu, {"tokens": tokens},
-                                           {"positions": pos})
+            want = model.reference_forward(sp_cpu, io_cpu, batch, aux)
             got = model.reference_forward(
-                sp_gpu, io_gpu, {"tokens": tokens.cuda()},
-                {"positions": pos.cuda()})
+                sp_gpu, io_gpu, {k: v.cuda() for k, v in batch.items()},
+                {k: v.cuda() for k, v in aux.items()})
         torch.cuda.synchronize()
-        if got.shape != (1, 256, cfg.padded_vocab()):
+        if got.shape != (1, s, cfg.padded_vocab()):
             raise AssertionError(f"logits of shape {tuple(got.shape)}")
         if not torch.isfinite(got).all():
             raise AssertionError("non-finite logits on the card")
         check_close(f"{arch} widths, {layers} layers {cfg.pattern} "
-                    f"(shared slots {model.shared_flags.tolist()}), 256 "
+                    f"(shared slots {model.shared_flags.tolist()}), {s} "
                     f"tokens: logits", got.cpu(), want, 1e-3)
         del sp_cpu, io_cpu, sp_gpu, io_gpu, got, want
         torch.cuda.empty_cache()
@@ -818,11 +883,12 @@ def decode_pass(model, sp, io, caches, tokens, pos):
 
 def serve_launches(model, batch: int) -> dict[str, int]:
     """K2 and K3 launches of one serve step, counted from the layers: per
-    batch row (one-row micro-groups), 2 norms per attention or Mamba layer
-    and shared-block application, 3 and one K3 per ``dec`` layer, none for
-    ``enc``, plus the head's norm."""
+    batch row (one-row micro-groups), 2 norms per attention, Mamba, MoE,
+    dense-FFN, mLSTM or sLSTM layer and shared-block application, 3 and one
+    K3 per ``dec`` layer, none for ``enc``, plus the head's norm."""
     norms = {"attn": 2, "attn_local": 2, "attn_global": 2, "mamba": 2,
-             "dec": 3, "enc": 0}
+             "moe": 2, "dense": 2, "mlstm": 2, "slstm": 2, "dec": 3,
+             "enc": 0}
     kinds = [model.layer_types[t] for t in model.type_ids.ravel() if t >= 0]
     shared = int(model.shared_flags.sum()) if model.cfg.shared_attn_period \
         else 0
@@ -883,18 +949,20 @@ def phase_small_serve():
                 out["cuda"][1], out["cpu"][1], 1e-3)
 
 
-def main_path_work(argv) -> tuple[int, float]:
+def main_path_work(argv, cfg=None) -> tuple[int, float]:
     """Tokens and model FLOPs of one step of a main path, from the port's
-    ``ArchModel.model_flops`` (6 x active matmul weights incl. the head x
-    tokens, plus causal attention per attention layer and shared-block
-    application; recompute not counted)."""
+    ``ArchModel.model_flops`` of the run's config (``cfg``, else the arch's
+    full one): 6 x active matmul weights incl. the head x tokens, plus
+    causal attention per attention layer and shared-block application;
+    recompute not counted."""
     from repro_torch.configs import registry
     from repro_torch.launch import train
     from repro_torch.models.build import build
     from repro_torch.models.common import ShapeCell
 
     args = train.parser().parse_args(argv)
-    model = build(registry.get_arch(args.arch), num_stages=args.stages)
+    model = build(cfg or registry.get_arch(args.arch),
+                  num_stages=args.stages)
     cell = ShapeCell("main", args.seq, args.microbatches * args.mb_rows,
                      "train")
     work = model.model_flops(cell)
@@ -904,18 +972,25 @@ def main_path_work(argv) -> tuple[int, float]:
 def phase_main_path():
     import torch
 
+    from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
     runs = {}
-    for arch, path_runs, needed in MAIN_PATHS:
+    for arch, path_runs, needed, layers in MAIN_PATHS:
         base = ["--arch", arch] + COMMON_ARGS
+        cfg = None if layers is None else registry.cut_depth(arch, layers)
         for name, extra in path_runs:
             print(f"main path {arch} ({name}): python -m "
-                  f"repro_torch.launch.train " + " ".join(base + extra))
+                  f"repro_torch.launch.train " + " ".join(base + extra)
+                  + ("" if cfg is None else
+                     f"  [cfg: registry.cut_depth({arch!r}, {layers}), "
+                     f"{cfg.pattern}]"))
+            torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
-            run = train.main(base + extra)
+            run = train.train_actor(train.parser().parse_args(base + extra),
+                                    cfg=cfg)
             counts = ops.launch_counts()
             steps = len(run.losses)
             print(f"  losses {run.losses}  step seconds {run.step_seconds}  "
@@ -935,12 +1010,15 @@ def phase_main_path():
                                      f"{missing}")
             runs[arch, name] = (run, counts,
                                 torch.cuda.max_memory_allocated())
-            tokens, flops = main_path_work(base + extra)
+            tokens, flops = main_path_work(base + extra, cfg)
             for i, sec in enumerate(run.step_seconds):
                 print(f"  step {i}: {sec:.3f} s  {tokens / sec:,.0f} tokens/s"
                       f"  model FLOP utilization "
                       f"{flops / sec / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s "
                       f"({flops:.4g} FLOP/step)")
+        torch.cuda.empty_cache()
+        if (arch, "bfw") not in runs:
+            continue
         l_bf = runs[arch, "bf"][0].losses[0]
         l_bfw = runs[arch, "bfw"][0].losses[0]
         if abs(l_bf - l_bfw) > TOL["bfloat16"] * max(1.0, abs(l_bf)):
@@ -1249,19 +1327,24 @@ def phase_serve_path():
     and finite logits from one more decode pass (outside the counts)."""
     import torch
 
+    from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     runs = {}
-    for arch, tokens in SERVE_PATHS:
+    for arch, tokens, layers, stages in SERVE_PATHS:
         argv = ["--arch", arch, "--tokens", str(tokens)] + SERVE_ARGS
+        argv[argv.index("--stages") + 1] = str(stages)
+        cfg = None if layers is None else registry.cut_depth(arch, layers)
         print(f"main path {arch} (serve): python -m repro_torch.launch.serve "
-              + " ".join(argv))
+              + " ".join(argv)
+              + ("" if cfg is None else
+                 f"  [cfg: registry.cut_depth({arch!r}, {layers})]"))
         args = serve.parser().parse_args(argv)
         server = serve.build_server(arch, stages=args.stages, layers=None,
                                     batch=args.batch,
                                     cache_len=args.cache_len, reduced=False,
-                                    device="cuda", seed=args.seed)
+                                    device="cuda", seed=args.seed, cfg=cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()

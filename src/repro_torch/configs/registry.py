@@ -37,6 +37,18 @@ def list_archs() -> tuple[str, ...]:
     return ARCHS
 
 
+def cut_depth(name: str, num_layers: int) -> ArchConfig:
+    """The full-width config of ``name`` with its first ``num_layers``
+    layers (its layer pattern cut to them): a model one card holds where
+    the full depth does not (the MoE configs with their optimizer state,
+    grok even for serving)."""
+    cfg = get_arch(name)
+    pattern = (None if cfg.layer_pattern is None
+               else cfg.layer_pattern[:num_layers])
+    return dataclasses.replace(cfg, num_layers=num_layers,
+                               layer_pattern=pattern)
+
+
 def reduced_config(name: str, num_layers: int | None = None) -> ArchConfig:
     """Same-family tiny config for CPU smoke tests.
 

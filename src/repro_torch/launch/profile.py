@@ -1,13 +1,15 @@
 """Where the device time of one training or serve step goes (``torch.profiler``).
 
-    python -m repro_torch.launch.profile [--out PATH] [train flags]
+    python -m repro_torch.launch.profile [--out PATH] [--depth N] [train flags]
     python -m repro_torch.launch.profile --workload multimodal [--out PATH]
     python -m repro_torch.launch.profile --serve [--out PATH] [serve flags]
 
 Runs :func:`repro_torch.launch.train.train_actor` for three steps (default
 flags: the first main path of ``chip_smoke.py``: paper-gpt3-large full
 size, 4 stages, 8 microbatches of 1 x 2048 tokens, hint bf; give train
-flags, e.g. ``--arch zamba2-1.2b --full-size ...``, for another), with
+flags, e.g. ``--arch zamba2-1.2b --full-size ...``, for another, and
+``--depth N`` to train the full-width config cut to its first N layers,
+``registry.cut_depth``, as ``chip_smoke.py`` trains deepseek-moe-16b), with
 ``--workload multimodal`` :func:`~repro_torch.launch.train.train_multimodal`
 (default flags: qwen2-vl-2b full size, 4 stages, 8 microbatches of 1 x
 2048 text tokens, hint bf), or with ``--serve``
@@ -29,6 +31,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.launch import serve, train
 
 DEFAULT_ARGS = ["--arch", "paper-gpt3-large", "--full-size", "--stages", "4",
@@ -49,6 +52,9 @@ CATEGORIES = (
     ("matmul (tensor cores)", ("nvjet", "gemm", "xmma", "cutlass",
                                "Kernel2", "sm90_")),
     ("reductions / softmax", ("reduce", "softmax", "logsumexp")),
+    # the MoE dispatch's cumsum (a scan) and top-k; the deterministic
+    # index_put_ sorts its indices
+    ("sort / top-k / scan", ("sort", "topk", "Sort", "scan", "radix")),
     ("indexing", ("index", "scatter", "gather", "embedding")),
     ("copies / casts / fills", ("copy", "Memcpy", "Memset", "fill",
                                 "cat")),
@@ -121,7 +127,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--serve", action="store_true")
     ap.add_argument("--workload", default="language",
                     choices=("language", "multimodal"))
+    ap.add_argument("--depth", type=int, default=None)
     own, rest = ap.parse_known_args(argv)
+    if own.depth is not None and (own.serve or own.workload != "language"):
+        raise SystemExit("--depth cuts a language training config")
+    kw = {}
     if own.serve:
         args = serve.parser().parse_args((rest or DEFAULT_SERVE_ARGS)
                                          + ["--tokens", "3"])
@@ -135,6 +145,8 @@ def main(argv=None) -> dict:
         args = train.parser().parse_args((rest or DEFAULT_ARGS)
                                          + ["--steps", "3"])
         run_fn = train.train_actor
+        if own.depth is not None:
+            kw["cfg"] = registry.cut_depth(args.arch, own.depth)
     train.resolve_device(args.device)
     captured = {}
 
@@ -147,7 +159,7 @@ def main(argv=None) -> dict:
             schedule=torch.profiler.schedule(skip_first=1, wait=0, warmup=1,
                                              active=1, repeat=1),
             on_trace_ready=ready) as prof:
-        run = run_fn(args, step_hook=lambda step: prof.step())
+        run = run_fn(args, step_hook=lambda step: prof.step(), **kw)
     out = breakdown(captured["events"], run.step_seconds[2])
     if not out["kernels"]:
         raise RuntimeError("no device kernel was traced: the breakdown is "

@@ -36,9 +36,13 @@ class ServeRun:
 
 def build_server(arch: str, *, stages: int, layers: int | None, batch: int,
                  cache_len: int, reduced: bool = True, device="cuda",
-                 seed: int = 0) -> dict:
-    cfg = (registry.reduced_config(arch, num_layers=layers)
-           if reduced else registry.get_arch(arch))
+                 seed: int = 0, cfg=None) -> dict:
+    """The model, its seeded weights, zeroed caches and serve step; ``cfg``
+    replaces the config of ``arch`` (a full-width config of fewer
+    layers)."""
+    if cfg is None:
+        cfg = (registry.reduced_config(arch, num_layers=layers)
+               if reduced else registry.get_arch(arch))
     model = build(cfg, num_stages=stages)
     sp = [model.init_stage_params(s, seed=seed, device=device)
           for s in range(stages)]

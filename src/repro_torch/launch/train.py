@@ -211,20 +211,25 @@ def _step_bytes(store: CheckpointStore, step: int) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
 
 
-def train_actor(args, *, init_params=None, step_hook=None) -> TrainRun:
+def train_actor(args, *, cfg=None, init_params=None,
+                step_hook=None) -> TrainRun:
     """Train with thread-per-stage actors dispatching real stage callables.
 
     Single process: stage s's parameters live with stage s's actor; AdamW
-    runs over the accumulated per-stage grads.  ``init_params(model,
-    device) -> (stage_modules, io_module)`` replaces the seeded init (the
-    parity tests load the reference's weights through it); ``step_hook(step)``
-    runs after each step (the profiler advances its schedule there).
+    runs over the accumulated per-stage grads.  ``cfg`` replaces the
+    ``ArchConfig`` built from the flags (``--full-size`` takes every layer:
+    a caller trains a full-width config of fewer layers this way);
+    ``init_params(model, device) -> (stage_modules, io_module)`` replaces
+    the seeded init (the parity tests load the reference's weights through
+    it); ``step_hook(step)`` runs after each step (the profiler advances
+    its schedule there).
     """
     device = resolve_device(args.device)
     if args.arch is None:
         args.arch = "deepseek-7b"
-    cfg = (registry.reduced_config(args.arch, num_layers=args.layers)
-           if not args.full_size else registry.get_arch(args.arch))
+    if cfg is None:
+        cfg = (registry.reduced_config(args.arch, num_layers=args.layers)
+               if not args.full_size else registry.get_arch(args.arch))
     model = build(cfg, num_stages=args.stages)
     if init_params is None:
         stage_params = [model.init_stage_params(s, seed=0, device=device)

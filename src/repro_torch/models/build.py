@@ -1,4 +1,4 @@
-"""Arch registry: ArchConfig -> ArchModel (dense slice of the port).
+"""Arch registry: ArchConfig -> ArchModel.
 
 Port of ``repro.models.build``.  The layout is the reference's: layers
 spread over stages by ``stage_layout``, per-slot ``type_ids`` (-1 =
@@ -8,13 +8,17 @@ Parameters are ``nn.Module``s: one :class:`StageParams` per stage and one
 stacked pytree, e.g. ``slots.{i}.blk.attn.wq`` of stage ``s`` is
 ``stage_params['blk']['attn']['wq'][s, i]`` (see ``models/convert.py``).
 
-The port runs the attention layer kinds (``attn``, ``attn_local``,
-``attn_global``), Mamba-2 layers (``mamba``) and zamba2's shared attention
+The port runs every layer kind of the reference forward and decode: the
+attention kinds (``attn``, ``attn_local``, ``attn_global``), the MoE
+families' ``moe`` and ``dense`` layers (attention, then routed experts or
+a dense FFN), Mamba-2 layers (``mamba``) with zamba2's shared attention
 block (``io.shared_blk``, applied before every ``shared_attn_period``-th
-layer), forward and decode; the enc-dec kinds (``enc``, ``dec``) at decode
-only (``stage_decode``; the reference runs their forward only in its SPMD
-executor).  The other kinds raise ``NotImplementedError`` naming the
-ROADMAP slice they move with.
+layer), and xLSTM's ``mlstm`` and ``slstm`` blocks; the enc-dec kinds
+(``enc``, ``dec``) at decode only (``stage_decode``): the reference runs
+their forward only in its SPMD executor, which moves with the multi-device
+slice (ROADMAP.md queue 1, item 18), as do the MoE layouts over more than
+one device (``moe_layout`` ``ep``/``tp``; one device computes them as
+``none``).
 
 Decode caches are trees of nested dicts, one per stage, each leaf stacked
 ``[l_max, batch, ...]`` (the reference's ``[S, l_max, ...]`` tree holds one
@@ -38,8 +42,10 @@ from repro_torch.models.common import (
     stage_layout,
 )
 from repro_torch.models.layers import (
+    FFN,
     Attention,
     DecoderLayer,
+    attention_block,
     decode_attention_block,
     decoder_layer,
     decoder_layer_decode,
@@ -48,27 +54,26 @@ from repro_torch.models.layers import (
     rmsnorm,
     zeros_param,
 )
+from repro_torch.models.moe import MoEFFN, moe_ffn
 from repro_torch.models.ssm import (
     MambaLayer,
     init_mamba_cache,
     mamba_layer,
     mamba_layer_decode,
 )
+from repro_torch.models.xlstm import (
+    MLSTMLayer,
+    SLSTMLayer,
+    init_mlstm_cache,
+    init_slstm_cache,
+    mlstm_layer,
+    mlstm_layer_decode,
+    slstm_layer,
+    slstm_layer_decode,
+)
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
-#: layer kind -> the ROADMAP queue-1 slice that ports it
-LATER_SLICES = {
-    "moe": "other families (MoE)",
-    "dense": "other families (MoE)",
-    "mlstm": "other families (xLSTM)",
-    "slstm": "other families (xLSTM)",
-}
-
-
-def _not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the port yet: it moves with the {slice_name} "
-        f"slice (ROADMAP.md queue 1)")
+MOE_KINDS = ("moe", "dense")
 
 
 def tree_map(fn, tree, *rest):
@@ -89,20 +94,32 @@ class LayerSlot(nn.Module):
     """Union parameters of one layer slot over the arch's layer kinds (the
     reference's ``init_layer_params``): ``blk`` for the attention and
     enc-dec kinds, ``cross_ln`` and ``cross`` (cross-attention, no biases)
-    for ``dec``, ``mamba`` for Mamba-2."""
+    for ``dec``; ``ln1``, ``attn``, ``ln2`` and ``moe`` (routed experts)
+    and/or ``dense_ffn`` (``moe.dense_d_ff`` wide) for ``moe``/``dense``;
+    ``mamba``, ``mlstm`` and ``slstm`` for their kinds."""
 
     def __init__(self, cfg: ArchConfig, layer_types, gen, device):
         super().__init__()
-        for kind in layer_types:
-            if kind in LATER_SLICES:
-                raise _not_ported(f"layer kind {kind!r}", LATER_SLICES[kind])
-        if set(layer_types) & {*ATTN_KINDS, "enc", "dec"}:
+        types = set(layer_types)
+        if types & {*ATTN_KINDS, "enc", "dec"}:
             self.blk = DecoderLayer(cfg, gen, device)
-        if "dec" in layer_types:
+        if "dec" in types:
             self.cross_ln = zeros_param((cfg.d_model,), cfg.dtype, device)
             self.cross = Attention(cfg, gen, device, cross=True)
-        if "mamba" in layer_types:
+        if types & set(MOE_KINDS):
+            self.ln1 = zeros_param((cfg.d_model,), cfg.dtype, device)
+            self.attn = Attention(cfg, gen, device)
+            self.ln2 = zeros_param((cfg.d_model,), cfg.dtype, device)
+            if "moe" in types:
+                self.moe = MoEFFN(cfg, gen, device)
+            if "dense" in types:
+                self.dense_ffn = FFN(cfg, gen, device, cfg.moe.dense_d_ff)
+        if "mamba" in types:
             self.mamba = MambaLayer(cfg, gen, device)
+        if "mlstm" in types:
+            self.mlstm = MLSTMLayer(cfg, gen, device)
+        if "slstm" in types:
+            self.slstm = SLSTMLayer(cfg, gen, device)
 
 
 class StageParams(nn.Module):
@@ -139,6 +156,9 @@ class ArchModel:
     type_ids: np.ndarray  # [S, l_max] index into layer_types, -1 disabled
     shared_flags: np.ndarray  # [S, l_max] apply-shared-block-before-slot
     layer_types: tuple[str, ...]
+    #: the reference's expert layout over its data axis (none | ep | tp);
+    #: the port's single-device paths pass ``"none"`` in their aux
+    moe_layout: str = "none"
 
     def rows(self, stage: int) -> dict[str, np.ndarray]:
         return {
@@ -175,10 +195,31 @@ class ArchModel:
             return self.cfg.sliding_window or 1024
         return 0
 
+    def _moe_ffn(self, slot: LayerSlot, kind: str, h, aux):
+        """The FFN half of a ``moe``/``dense`` layer."""
+        if kind == "dense":
+            return ffn_block(slot.dense_ffn, h, self.cfg.act)
+        return moe_ffn(slot.moe, h, self.cfg,
+                       layout=aux.get("moe_layout", "none"),
+                       axis_size=aux.get("data_size", 1))
+
     def _branch(self, kind: str):
         cfg = self.cfg
         if kind == "mamba":
             return lambda slot, io, x, aux: mamba_layer(slot.mamba, x, cfg)
+        if kind == "mlstm":
+            return lambda slot, io, x, aux: mlstm_layer(slot.mlstm, x, cfg)
+        if kind == "slstm":
+            return lambda slot, io, x, aux: slstm_layer(slot.slstm, x, cfg)
+        if kind in MOE_KINDS:
+
+            def moe_fn(slot: LayerSlot, io, x, aux):
+                h = rmsnorm(x, slot.ln1, cfg.norm_eps)
+                x = x + attention_block(slot.attn, h, aux["positions"], cfg)
+                h = rmsnorm(x, slot.ln2, cfg.norm_eps)
+                return x + self._moe_ffn(slot, kind, h, aux)
+
+            return moe_fn
         if kind in ("enc", "dec"):
             raise NotImplementedError(
                 f"the {kind!r} forward is not in the port: the reference "
@@ -187,7 +228,7 @@ class ArchModel:
                 f"slice (ROADMAP.md queue 1, item 18); its decode "
                 f"(stage_decode) is ported")
         if kind not in ATTN_KINDS:
-            raise _not_ported(f"layer kind {kind!r}", LATER_SLICES[kind])
+            raise ValueError(kind)
         window = self._window(kind)
 
         def attn_like(slot: LayerSlot, io, x, aux):
@@ -229,15 +270,16 @@ class ArchModel:
     def init_layer_cache(self, batch: int, seq: int, enc_len: int = 0, *,
                          device="cuda") -> dict:
         """Union cache of one layer slot (the reference's): ``k``/``v`` for
-        the attention kinds, ``dec`` and the shared block, ``xk``/``xv``
-        (the encoder's keys and values) when the arch has ``dec``,
-        ``mamba``'s (conv, ssm) pair."""
+        the attention kinds, ``dec``, ``moe``/``dense`` and the shared
+        block, ``xk``/``xv`` (the encoder's keys and values) when the arch
+        has ``dec``, ``mamba``'s (conv, ssm) pair, the mLSTM's (C, n, m)
+        and the sLSTM's (c, n, h, m) states."""
         cfg = self.cfg
         types = set(self.layer_types)
         shape = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
         xshape = (batch, enc_len) + shape[2:]
         c: dict = {}
-        if types & {*ATTN_KINDS, "dec"} or cfg.shared_attn_period:
+        if types & {*ATTN_KINDS, "dec", *MOE_KINDS} or cfg.shared_attn_period:
             c["k"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
             c["v"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
         if "dec" in types:
@@ -245,15 +287,20 @@ class ArchModel:
             c["xv"] = torch.zeros(xshape, dtype=cfg.dtype, device=device)
         if "mamba" in types:
             c["mamba"] = init_mamba_cache(batch, cfg, device=device)
+        if "mlstm" in types:
+            c["mlstm"] = init_mlstm_cache(batch, cfg, device=device)
+        if "slstm" in types:
+            c["slstm"] = init_slstm_cache(batch, cfg, device=device)
         return c
 
     def init_stage_cache(self, batch: int, seq: int, enc_len: int = 0, *,
                          device="cuda") -> dict:
-        """One stage's cache: each leaf of ``init_layer_cache`` stacked
-        ``[l_max, ...]``, zeros."""
-        one = self.init_layer_cache(batch, seq, enc_len, device="meta")
-        return tree_map(lambda t: torch.zeros(
-            (self.l_max,) + tuple(t.shape), dtype=t.dtype, device=device), one)
+        """One stage's cache: each leaf of ``init_layer_cache`` repeated
+        ``[l_max, ...]`` (zeros, but the mLSTM's ``m`` of -inf and the
+        sLSTM's ``n`` of ones)."""
+        one = self.init_layer_cache(batch, seq, enc_len, device=device)
+        return tree_map(lambda t: t.unsqueeze(0).repeat(
+            (self.l_max,) + (1,) * t.dim()), one)
 
     def _decode_branch(self, kind: str):
         """fn(slot, io, x [b, 1, d], cache, pos, aux) -> y; ``cache`` is the
@@ -290,10 +337,26 @@ class ArchModel:
                 return x + ffn_block(slot.blk.ffn, h, cfg.act)
 
             return dec_fn
+        if kind in MOE_KINDS:
+
+            def moe_fn(slot: LayerSlot, io, x, cache, pos, aux):
+                h = rmsnorm(x, slot.ln1, cfg.norm_eps)
+                x = x + decode_attention_block(slot.attn, h, cache, pos,
+                                               cfg)[0]
+                h = rmsnorm(x, slot.ln2, cfg.norm_eps)
+                return x + self._moe_ffn(slot, kind, h, aux)
+
+            return moe_fn
         if kind == "mamba":
             return lambda slot, io, x, cache, pos, aux: mamba_layer_decode(
                 slot.mamba, x, cache["mamba"], cfg)[0]
-        raise _not_ported(f"layer kind {kind!r}", LATER_SLICES[kind])
+        if kind == "mlstm":
+            return lambda slot, io, x, cache, pos, aux: mlstm_layer_decode(
+                slot.mlstm, x, cache["mlstm"], cfg)[0]
+        if kind == "slstm":
+            return lambda slot, io, x, cache, pos, aux: slstm_layer_decode(
+                slot.slstm, x, cache["slstm"], cfg)[0]
+        raise ValueError(kind)
 
     def stage_decode(self, stage_params: StageParams, io: IOParams, x,
                      stage_cache: dict, pos: int, aux: dict, rows):
@@ -393,6 +456,9 @@ def build(cfg: ArchConfig, num_stages: int = 16) -> ArchModel:
                 type_ids[s, i] = types.index(pattern[g])
                 if cfg.shared_attn_period and g % cfg.shared_attn_period == 0:
                     shared[s, i] = 1
+    layout = "none"
+    if cfg.family == "moe":
+        layout = "ep" if cfg.moe.num_experts >= 16 else "tp"
     return ArchModel(
         cfg=cfg,
         num_stages=num_stages,
@@ -401,4 +467,5 @@ def build(cfg: ArchConfig, num_stages: int = 16) -> ArchModel:
         type_ids=type_ids,
         shared_flags=shared,
         layer_types=types,
+        moe_layout=layout,
     )

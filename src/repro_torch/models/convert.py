@@ -210,8 +210,12 @@ def cache_from_reference(model: ArchModel, cache_np: dict, device
     """The port's per-stage decode caches holding the reference's stacked
     ``[num_stages, l_max, batch, ...]`` cache tree (keys, dtypes and shapes
     must be the port's ``init_stage_cache``'s; a mismatch raises)."""
-    # every ported arch has an attention (or shared-block) k/v cache
-    _, _, batch, seq = np.shape(cache_np["k"])[:4]
+    # leaves are [S, l_max, batch, ...]; only k/v (attention) carry the
+    # sequence (xLSTM's recurrent states have none) and xk/xv enc_len
+    leaves: list = []
+    tree_map(leaves.append, cache_np)
+    batch = np.shape(leaves[0])[2]
+    seq = np.shape(cache_np["k"])[3] if "k" in cache_np else 0
     enc_len = np.shape(cache_np["xk"])[3] if "xk" in cache_np else 0
     stages = []
     for s in range(model.num_stages):

@@ -1,7 +1,8 @@
 """Transformer building blocks in PyTorch.
 
 Port of ``repro.models.layers``: pre-norm decoder layer = RMSNorm (kernel
-K2) -> RoPE -> GQA attention (kernel K1) -> RMSNorm -> FFN, and its decode
+K2) -> RoPE (or qwen2-vl's 3-axis M-RoPE) -> GQA attention (kernel K1) ->
+RMSNorm -> FFN, and its decode
 half: one token against a KV cache (``decode_attention_block``,
 ``decoder_layer_decode``; the plain ``decode_attention``, as the reference's
 self-attention decode reaches no kernel).  Caches are updated in place
@@ -67,8 +68,34 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, theta: float = 10_000.0,
+                sections=(16, 24, 24)):
+    """Qwen2-VL multimodal RoPE: positions3 [3, b, s] (t/h/w axes).
+
+    The rotary half-dim is split into three sections, each rotated by its
+    own position stream.  ``sections`` are half-dim sizes summing to hd/2;
+    a reduced head dim rescales them as the reference does (numpy int64
+    truncation, the last section taking the remainder).
+    """
+    hd = x.shape[-1]
+    secs = np.asarray(sections, dtype=np.int64)
+    if secs.sum() * 2 != hd:
+        secs = np.maximum(1, (secs * (hd // 2) / secs.sum()).astype(np.int64))
+        secs[-1] = hd // 2 - secs[:-1].sum()
+    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
+                            device=x.device)
+    parts = np.concatenate([[0], np.cumsum(secs)])
+    ang = torch.cat([positions3[i][..., None].float()
+                     * freqs[parts[i]:parts[i + 1]] for i in range(3)],
+                    dim=-1)  # [b, s, hd/2]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
-# Attention block (GQA, optional bias / sliding window)
+# Attention block (GQA, optional bias / sliding window / M-RoPE)
 # ---------------------------------------------------------------------------
 class Attention(nn.Module):
     """Self-attention weights, or cross-attention's (``cross``: no biases,
@@ -104,17 +131,16 @@ def attention_block(p: Attention, x, positions, cfg: ArchConfig, *,
     """Self-attention sub-block; the pre-norm residual is the caller's.
 
     As in the reference, an M-RoPE config rotates by its 3-axis positions
-    only when ``mrope_pos`` is given, and by plain RoPE otherwise (the
-    multimodal DAG's LM layers give none).
+    ``mrope_pos`` [3, b, s] when they are given, and by plain RoPE
+    otherwise (the multimodal DAG's LM layers give none).
     """
-    if cfg.mrope and mrope_pos is not None:
-        raise NotImplementedError(
-            "M-RoPE positions (qwen2-vl's 3-axis rotary) are not in the "
-            "port yet: apply_mrope moves with the other-families slice "
-            "(ROADMAP.md queue 1, item 16)")
     q, k, v = attention_qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope and mrope_pos is not None:
+        q = apply_mrope(q, mrope_pos, cfg.rope_theta)
+        k = apply_mrope(k, mrope_pos, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     o = ops.flash_attention(q, k, v, positions, causal=causal, window=window)
     b, s = x.shape[:2]
     return o.reshape(b, s, -1) @ p.wo
@@ -183,7 +209,8 @@ def decode_attention_block(p: Attention, x, cache: dict, pos: int,
     x: [b, 1, d]; cache: dict(k=[b, S, hkv, hd], v=[b, S, hkv, hd]); pos:
     the current index.  The new key and value are written into the cache
     in place (the reference returns updated copies); returns
-    ``(out [b, 1, d], cache)``.
+    ``(out [b, 1, d], cache)``.  An M-RoPE config decodes with plain RoPE
+    at ``pos``, as the reference's ``decode_attention_block`` does.
     """
     if axis_name is not None:
         raise NotImplementedError(

@@ -41,6 +41,7 @@ def make_serve_fn(model: ArchModel, opts: DecodeOptions, num_groups: int):
     M = num_groups
     r = opts.mb_rows
     rows = [model.rows(s) for s in range(S)]
+    aux = {"data_size": 1, "moe_layout": "none"}  # experts computed locally
 
     def embed_group(io, batch, mb):
         if cfg.embed_input:
@@ -60,7 +61,7 @@ def make_serve_fn(model: ArchModel, opts: DecodeOptions, num_groups: int):
                     cache_mb = tree_map(lambda c: c[:, mb * r:(mb + 1) * r],
                                         caches[s])
                     acts[mb], _ = model.stage_decode(
-                        stage_params[s], io, x, cache_mb, pos, {}, rows[s])
+                        stage_params[s], io, x, cache_mb, pos, aux, rows[s])
                     if s == S - 1:
                         h = rmsnorm(acts.pop(mb), io.final_ln, cfg.norm_eps)
                         logits = (h @ io.head.T).float()

@@ -103,7 +103,9 @@ class StageFns:
         seq = self.opts.seq_len
         device = bm["labels"].device
         pos = torch.arange(seq, dtype=torch.int32, device=device)
-        a = {"positions": pos[None].expand(self.opts.mb_rows, seq)}
+        a = {"positions": pos[None].expand(self.opts.mb_rows, seq),
+             "data_size": 1,
+             "moe_layout": "none"}  # one device: experts computed locally
         if "mrope" in bm:
             a["mrope"] = bm["mrope"]
         return a

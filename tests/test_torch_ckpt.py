@@ -95,8 +95,14 @@ def test_leaf_names_are_jax_keystr():
         for p, _ in jax.tree_util.tree_leaves_with_path(ints)]
 
 
+#: float32 leaves of a model of any dtype: (path, a reference leaf)
+FLOAT32_LEAVES = {"deepseek-moe-16b": ("moe", "router"),
+                  "xlstm-350m": ("mlstm", "bf")}
+
+
 @pytest.mark.parametrize("arch", ["paper-gpt3-large", "zamba2-1.2b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2",
+                                  "deepseek-moe-16b", "xlstm-350m"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_params_to_reference_inverts_params_from_reference(arch, dtype):
     model, _, sp, io = _models(arch, dtype)
@@ -105,8 +111,14 @@ def test_params_to_reference_inverts_params_from_reference(arch, dtype):
     got_sp, got_io = params_to_reference(model, stages, io_mod)
     _assert_tree_equal(got_sp, sp)
     _assert_tree_equal(got_io, io)
-    if dtype == "bfloat16":  # numpy has no bfloat16 here: widened
-        assert got_sp["blk"]["attn"]["wq"].dtype == np.float32
+    if arch in FLOAT32_LEAVES:  # float32 both ways, whatever the model's
+        kind, leaf = FLOAT32_LEAVES[arch]
+        assert sp[kind][leaf].dtype == np.float32
+        assert getattr(getattr(stages[0].slots[0], kind), leaf).dtype == \
+            torch.float32
+        assert got_sp[kind][leaf].dtype == np.float32
+    if dtype == "bfloat16" and "blk" in got_sp:  # numpy has no bfloat16
+        assert got_sp["blk"]["attn"]["wq"].dtype == np.float32  # widened
     # one stage alone (the respawn path) holds the same weights
     (s1,), _ = params_from_reference(model, sp, io, "cpu", stages=[1])
     for a, b in zip(s1.parameters(), stages[1].parameters()):

@@ -35,9 +35,13 @@ TOL = 2e-5
 TOL_STAGE = 1e-4
 #: (arch, layers, stages): dense with a disabled slot; gemma3's local and
 #: global windows; seamless with an encoder-only stage, a mixed stage and a
-#: disabled slot; zamba2's Mamba layers with shared-block slots
+#: disabled slot; zamba2's Mamba layers with shared-block slots;
+#: deepseek-moe's dense and MoE layers (a disabled slot), grok's GEGLU
+#: experts; xlstm's mLSTM and sLSTM states; qwen2-vl (plain RoPE at decode)
 ARCHS = [("deepseek-7b", 5, 2), ("gemma3-4b", 4, 2),
-         ("seamless-m4t-large-v2", 6, 4), ("zamba2-1.2b", 3, 2)]
+         ("seamless-m4t-large-v2", 6, 4), ("zamba2-1.2b", 3, 2),
+         ("deepseek-moe-16b", 3, 2), ("grok-1-314b", 3, 2),
+         ("xlstm-350m", 4, 2), ("qwen2-vl-2b", 3, 2)]
 
 
 def configs(arch: str, n_layers: int):

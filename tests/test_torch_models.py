@@ -1,10 +1,12 @@
 """Port models against the reference: configs, layout, layers, forward.
 
 Every config field and parameter count of every registered arch, full and
-reduced; the stage layout; RoPE and the decoder layer; and the logits of
+reduced; the stage layout and MoE layout; RoPE, M-RoPE (three distinct
+position streams) and the decoder layer; the logits of
 ``reference_forward`` on identical weights (the reference's parameters
-loaded by path through ``params_from_reference``).  float32, tolerance
-1e-4 for whole-model outputs, 2e-5 for single functions.
+loaded by path through ``params_from_reference``); and every arch's
+forward, gradient step and decode step on the CPU.  float32, tolerance
+1e-4 for whole-model outputs, 2e-5 for single functions (1e-5 M-RoPE).
 """
 import dataclasses
 
@@ -53,18 +55,28 @@ def test_stage_layout_matches(arch, stages):
     assert port.l_max == ref.l_max and port.layer_types == ref.layer_types
     assert np.array_equal(port.type_ids, ref.type_ids)
     assert np.array_equal(port.shared_flags, ref.shared_flags)
+    assert port.moe_layout == ref.moe_layout
     for s in range(stages):
         for k, v in ref.rows(s).items():
             assert np.array_equal(port.rows(s)[k], v)
 
 
-def test_unported_layer_kinds_name_their_slice():
-    model = tbuild(registry.reduced_config("deepseek-moe-16b"), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_stage_params(0, device="cpu")
-    model = tbuild(registry.reduced_config("xlstm-350m"), 2)
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        model.init_stage_params(0, device="cpu")
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "grok-1-314b"])
+def test_moe_layouts_over_devices_raise_naming_item_18(arch):
+    """The reference's ``ep``/``tp`` layouts spread the experts over its
+    data axis; more than one device moves with the multi-device slice."""
+    cfg = registry.reduced_config(arch, num_layers=2)
+    model = tbuild(cfg, 1)
+    sp = model.init_stage_params(0, seed=0, device="cpu")
+    io = model.init_io_params(seed=0, device="cpu")
+    x = torch.zeros((1, 4, cfg.d_model))
+    aux = {"positions": torch.arange(4)[None], "data_size": 2,
+           "moe_layout": model.moe_layout}
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 18"):
+        model.stage_forward(sp, io, x, aux, model.rows(0))
+    cache = model.init_stage_cache(1, 8, device="cpu")
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 18"):
+        model.stage_decode(sp, io, x[:, :1], cache, 0, aux, model.rows(0))
 
 
 def test_rope_matches_reference():
@@ -78,6 +90,40 @@ def test_rope_matches_reference():
                                rtol=2e-5)
     assert np.array_equal(layers.rope_freqs(16, 1e4),
                           jlayers.rope_freqs(16, 1e4))
+
+
+def mrope_streams(b, s, seed=0):
+    """Three distinct t/h/w position streams [3, b, s]: a time index that
+    holds over image patches and a 2-D patch grid (equal streams would
+    make M-RoPE plain RoPE)."""
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.integers(0, 2, (b, s)), axis=1)
+    h = rng.integers(0, 6, (b, s))
+    w = rng.integers(0, 9, (b, s))
+    return np.stack([t, h, w]).astype(np.int32)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 128])
+def test_mrope_matches_reference_on_distinct_streams(hd):
+    """hd 128 takes the sections (16, 24, 24) as they are; 16 and 32
+    rescale them as the reference does."""
+    rng = np.random.default_rng(hd)
+    x = rng.standard_normal((2, 12, 3, hd)).astype(np.float32)
+    pos3 = mrope_streams(2, 12, seed=hd)
+    want = jlayers.apply_mrope(jnp.asarray(x), jnp.asarray(pos3), 1e6)
+    got = layers.apply_mrope(torch.from_numpy(x), torch.from_numpy(pos3),
+                             1e6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    plain = layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos3[0]),
+                              1e6)
+    assert (got - plain).abs().max() > 1e-2  # the h/w sections rotate apart
+    # equal streams: M-RoPE is plain RoPE (why the synthetic data cannot
+    # tell them apart)
+    same = np.broadcast_to(pos3[:1], pos3.shape).copy()
+    np.testing.assert_allclose(
+        layers.apply_mrope(torch.from_numpy(x), torch.from_numpy(same),
+                           1e6).numpy(), plain.numpy(), atol=1e-6)
 
 
 def reduced_configs(arch, layers_n):
@@ -128,30 +174,88 @@ def test_decoder_layer_matches_reference(act):
                                atol=1e-4, rtol=1e-4)
 
 
+def model_inputs(cfg, b, s, seed=2):
+    """numpy (batch, aux) of a reduced config: tokens or, for an
+    ``embed_input`` arch, embeddings; M-RoPE streams for qwen2-vl."""
+    rng = np.random.default_rng(seed)
+    if cfg.embed_input:
+        batch = {"embeds": rng.standard_normal((b, s, cfg.d_model)).astype(
+            np.float32)}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+            np.int32)}
+    aux = {"positions": np.broadcast_to(np.arange(s, dtype=np.int32),
+                                        (b, s)).copy()}
+    if cfg.mrope:
+        aux["mrope"] = mrope_streams(b, s, seed)
+    return batch, aux
+
+
+def torch_inputs(batch, aux):
+    return ({k: torch.from_numpy(v).long() if k == "tokens"
+             else torch.from_numpy(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in aux.items()})
+
+
 @pytest.mark.parametrize("arch", ["paper-gpt3-large", "deepseek-7b",
                                   "qwen1.5-32b", "granite-34b", "gemma3-4b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "deepseek-moe-16b",
+                                  "grok-1-314b", "xlstm-350m",
+                                  "qwen2-vl-2b"])
 def test_reference_forward_logits_match(arch):
     # zamba2: 5 Mamba layers on 2 stages (a disabled slot, shared-block
-    # slots on both stages); seq 40 = two full chunks of 16 and a padded one
+    # slots on both stages); seq 40 = two full chunks of 16 and a padded
+    # one.  deepseek-moe: its dense first layer and MoE layers (shared
+    # experts); grok: GEGLU experts; xlstm: the reduced 3:1 pattern;
+    # qwen2-vl: embeddings in, three distinct M-RoPE streams
     layers_n, s = (5, 40) if arch == "zamba2-1.2b" else (4, 16)
     model_j, sp, io = _reference_model(arch, stages=2, layers_n=layers_n)
     model_t = tbuild(reduced_configs(arch, layers_n)[1], 2)
     stages, io_t = params_from_reference(model_t, _np_tree(sp), _np_tree(io),
                                          "cpu")
-    rng = np.random.default_rng(2)
-    b = 2
-    tokens = rng.integers(0, model_j.cfg.vocab_size, (b, s)).astype(np.int32)
-    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
-    want = model_j.reference_forward(sp, io, {"tokens": jnp.asarray(tokens)},
-                                     {"positions": jnp.asarray(pos)})
+    batch, aux = model_inputs(model_t.cfg, 2, s)
+    want = model_j.reference_forward(
+        sp, io, jax.tree.map(jnp.asarray, batch),
+        {**jax.tree.map(jnp.asarray, aux), "data_size": 1,
+         "moe_layout": "none"})
     with torch.no_grad():
-        got = model_t.reference_forward(
-            stages, io_t, {"tokens": torch.from_numpy(tokens).long()},
-            {"positions": torch.from_numpy(pos)})
+        got = model_t.reference_forward(stages, io_t,
+                                        *torch_inputs(batch, aux))
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", jreg.ARCHS)
+def test_every_arch_forward_grad_step_and_decode(arch):
+    """The port's counterpart of tests/test_archs.py on every registered
+    arch (reduced, 6 layers on 4 stages, seeded weights): finite logits of
+    the right shape, finite gradients with some nonzero, and one decode
+    step against a cache on every stage.  seamless-m4t's enc-dec forward
+    runs only in the reference's SPMD executor (item 18): decode only."""
+    cfg = registry.reduced_config(arch, num_layers=6)
+    model = tbuild(cfg, 4)
+    sp = [model.init_stage_params(s, seed=1, device="cpu") for s in range(4)]
+    io = model.init_io_params(seed=1, device="cpu")
+    if "enc" not in model.layer_types:
+        batch, aux = torch_inputs(*model_inputs(cfg, 2, 32))
+        logits = model.reference_forward(sp, io, batch, aux)
+        assert logits.shape == (2, 32, cfg.padded_vocab())
+        assert torch.isfinite(logits).all()
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        params = [p for m in (*sp, io) for p in m.parameters()]
+        grads = torch.autograd.grad(lse.mean(), params, allow_unused=True)
+        grads = [g for g in grads if g is not None]
+        assert all(torch.isfinite(g).all() for g in grads)
+        assert any(float(g.abs().max()) > 0 for g in grads)
+    x = torch.randn((2, 1, cfg.d_model),
+                    generator=torch.Generator().manual_seed(5)) * 0.1
+    with torch.inference_mode():
+        for s in range(4):
+            cache = model.init_stage_cache(2, 16, 4, device="cpu")
+            y, _ = model.stage_decode(sp[s], io, x, cache, 3, {},
+                                      model.rows(s))
+            assert y.shape == x.shape and torch.isfinite(y).all()
 
 
 def test_params_from_reference_loads_every_leaf_by_path():

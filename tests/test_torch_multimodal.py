@@ -191,8 +191,8 @@ def test_masked_encoder_attention_matches_reference(arch, length, bucket):
 
 def test_mrope_config_without_positions_takes_plain_rope():
     """qwen2-vl-2b (``mrope=True``): no M-RoPE positions -> plain RoPE, as
-    the reference's ``attention_block``; given positions, the port still
-    raises (``apply_mrope`` moves with queue 1, item 16)."""
+    the reference's ``attention_block``; given three distinct position
+    streams, M-RoPE, as the reference's, and not the plain rotation."""
     jm, jp, tm, tp = _both("qwen2-vl-2b", **TINY["qwen2-vl-2b"])
     cfg_j, cfg_t = jm.cfg.lm_cfg, tm.cfg.lm_cfg
     assert cfg_t.mrope and cfg_j.mrope
@@ -206,19 +206,28 @@ def test_mrope_config_without_positions_takes_plain_rope():
                                  torch.from_numpy(pos), cfg_t)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=TOL, rtol=TOL)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        layers.attention_block(tp[t].layers[0].attn, torch.from_numpy(x),
-                               torch.from_numpy(pos), cfg_t,
-                               mrope_pos=torch.zeros((3, ROWS, SEQ)))
+    pos3 = np.stack([pos, rng.integers(0, 4, pos.shape),
+                     rng.integers(0, 6, pos.shape)]).astype(np.int32)
+    want_m = jlayers.attention_block(
+        jp[t]["layers"][0]["attn"], jnp.asarray(x), jnp.asarray(pos), cfg_j,
+        mrope_pos=jnp.asarray(pos3))
+    got_m = layers.attention_block(
+        tp[t].layers[0].attn, torch.from_numpy(x), torch.from_numpy(pos),
+        cfg_t, mrope_pos=torch.from_numpy(pos3))
+    np.testing.assert_allclose(got_m.detach().numpy(), np.asarray(want_m),
+                               atol=TOL, rtol=TOL)
+    assert (got_m - got).abs().max() > 1e-3
 
 
-def test_language_qwen2_vl_still_refuses_mrope_positions():
-    """The language workload feeds qwen2-vl its 3-axis positions, which the
-    port cannot rotate yet: it raises instead of taking plain RoPE."""
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        train.main(["--arch", "qwen2-vl-2b", "--stages", "2", "--layers",
-                    "2", "--microbatches", "2", "--seq", "8", "--steps",
-                    "1", "--device", "cpu"])
+def test_language_qwen2_vl_matches_reference_train_actor():
+    """The language workload feeds qwen2-vl its 3-axis positions (equal
+    streams from ``synth_batch``) and embeddings: the port's losses are
+    the reference's ``train_actor``'s on its weights, within 1e-4."""
+    from test_torch_train import _check_trajectory
+
+    _check_trajectory(["--arch", "qwen2-vl-2b", "--stages", "2", "--layers",
+                       "2", "--microbatches", "2", "--seq", "8", "--steps",
+                       "3", "--device", "cpu"], falls=False)
 
 
 def test_bf16_model_promotes_as_the_reference():

@@ -38,7 +38,9 @@ ROOT = Path(__file__).resolve().parents[1]
 TOKENS = 4
 #: (arch, layers, stages), as in tests/test_torch_decode.py
 ARCHS = [("deepseek-7b", 5, 2), ("gemma3-4b", 4, 2),
-         ("seamless-m4t-large-v2", 6, 4), ("zamba2-1.2b", 3, 2)]
+         ("seamless-m4t-large-v2", 6, 4), ("zamba2-1.2b", 3, 2),
+         ("deepseek-moe-16b", 3, 2), ("grok-1-314b", 3, 2),
+         ("xlstm-350m", 4, 2), ("qwen2-vl-2b", 3, 2)]
 
 
 def configs(arch: str, n_layers: int):
@@ -64,6 +66,13 @@ def reference_server(arch, n_layers, stages, batch, cache_len, enc_len):
     cache = jax.tree.map(
         lambda c: rng.standard_normal(lead + c.shape).astype(c.dtype),
         model_j.init_layer_cache(batch, cache_len, enc_len))
+    if "slstm" in cache:
+        # the sLSTM's normaliser starts at 1 and only adds positive terms:
+        # a reachable n is >= its decayed start, never near 0, where
+        # h = c / max(n, 1e-6) would blow up to 1e6 and both packages'
+        # float32 roundings with it
+        n = cache["slstm"]["n"]
+        cache["slstm"]["n"] = (1.0 + np.abs(n)).astype(n.dtype)
     sp_t, io_t = params_from_reference(model_t, sp, io, "cpu")
     opts = DecodeOptions(mb_rows=1, cache_len=cache_len, enc_len=enc_len)
     server = dict(cfg=cfg_t, model=model_t, sp=sp_t, io=io_t,
@@ -74,7 +83,9 @@ def reference_server(arch, n_layers, stages, batch, cache_len, enc_len):
 
 def jax_serve(model_j, sp, io, cache, first_tokens, steps):
     """The reference's decode on one device: each one-row micro-group
-    through every stage's ``stage_decode``, then the greedy float32 head."""
+    through every stage's ``stage_decode``, then the greedy float32 head.
+    An ``embed_input`` arch is fed the embeddings the port's ``serve``
+    draws for each step."""
     S, cfg = model_j.num_stages, model_j.cfg
     aux = {"data_size": 1, "moe_layout": "none"}
     fns = [jax.jit(lambda p, io_, x, c, pos, s=s: model_j.stage_decode(
@@ -86,8 +97,12 @@ def jax_serve(model_j, sp, io, cache, first_tokens, steps):
     seqs = [np.asarray(first_tokens)]
     for pos in range(steps):
         nxt = []
+        embeds = (torch.randn((len(first_tokens), 1, cfg.d_model),
+                              generator=torch.Generator().manual_seed(pos))
+                  * 0.02).numpy()
         for mb in range(len(first_tokens)):
-            x = io["embed"][jnp.asarray(seqs[-1][mb:mb + 1])][:, None]
+            x = (jnp.asarray(embeds[mb:mb + 1]) if cfg.embed_input else
+                 io["embed"][jnp.asarray(seqs[-1][mb:mb + 1])][:, None])
             for s in range(S):
                 c = jax.tree.map(lambda a: a[:, mb:mb + 1], caches[s])
                 x, c = fns[s](sps[s], io, x, c, jnp.asarray(pos, jnp.int32))

@@ -6,8 +6,10 @@
 * Inside the port, bit for bit (mirroring tests/test_split_backward.py and
   tests/conformance/test_real_model.py): the BFW split backward equals the
   fused one, and a chaotic threaded run equals a fixed-order run under
-  ``deterministic_reduction`` — for the dense decoder and for zamba2 (Mamba
-  layers and the shared attention block, whose gradients are IO gradients).
+  ``deterministic_reduction`` — for the dense decoder, for zamba2 (Mamba
+  layers and the shared attention block, whose gradients are IO
+  gradients), for deepseek-moe (routed and shared experts behind a dense
+  first layer) and for xlstm (mLSTM and sLSTM blocks).
 """
 import dataclasses
 
@@ -37,14 +39,27 @@ from repro_torch.runtime.rrfp.messages import payload_for_edge
 TOL = 1e-4
 
 
-def _batch_np(vocab, rows, seq, seed=2):
+def _batch_np(cfg, rows, seq, seed=2):
+    """tokens and labels; embeddings for an ``embed_input`` arch and three
+    distinct M-RoPE position streams for an M-RoPE one."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, vocab, (rows, seq)).astype(np.int32),
-            "labels": rng.integers(0, vocab, (rows, seq)).astype(np.int32)}
+    vocab = cfg.vocab_size
+    b = {"tokens": rng.integers(0, vocab, (rows, seq)).astype(np.int32),
+         "labels": rng.integers(0, vocab, (rows, seq)).astype(np.int32)}
+    if cfg.embed_input:
+        b["embeds"] = rng.standard_normal((rows, seq, cfg.d_model)).astype(
+            np.float32)
+    if cfg.mrope:
+        b["mrope"] = np.stack([np.cumsum(rng.integers(0, 2, (rows, seq)), 1),
+                               rng.integers(0, 6, (rows, seq)),
+                               rng.integers(0, 9, (rows, seq))]
+                              ).astype(np.int32)
+    return b
 
 
 def _torch_batch(b):
-    return {k: torch.from_numpy(v).long() for k, v in b.items()}
+    return {k: torch.from_numpy(v).long() if k in ("tokens", "labels")
+            else torch.from_numpy(v) for k, v in b.items()}
 
 
 def _close(got, want):
@@ -71,7 +86,9 @@ def reduced(reg, arch, layers):
 
 
 @pytest.mark.parametrize("arch", ["paper-gpt3-large", "deepseek-7b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "deepseek-moe-16b",
+                                  "grok-1-314b", "xlstm-350m",
+                                  "qwen2-vl-2b"])
 def test_stage_fns_match_reference(arch):
     # zamba2: 5 Mamba layers (a disabled slot; the shared block on both
     # stages, its gradient in d_io); seq 40 = 2 chunks of 16 + a padded one
@@ -86,7 +103,7 @@ def test_stage_fns_match_reference(arch):
     stages, io_t = params_from_reference(
         model_t, jax.tree.map(np.asarray, sp), jax.tree.map(np.asarray, io),
         "cpu")
-    bnp = _batch_np(cfg_j.vocab_size, mb_rows, seq)
+    bnp = _batch_np(model_t.cfg, mb_rows, seq)
     tokens = mb_rows * seq
     fj = jstagefn.StageFns(model_j, jstagefn.StageFnOptions(
         mb_rows=mb_rows, seq_len=seq, loss_scale=1.0 / tokens))
@@ -134,7 +151,7 @@ def _port_setup(S, M, mb_rows, seq, layers, arch="deepseek-7b"):
     stages = [model.init_stage_params(s, seed=0, device="cpu")
               for s in range(S)]
     io = model.init_io_params(seed=0, device="cpu")
-    batch = _torch_batch(_batch_np(cfg.vocab_size, M * mb_rows, seq))
+    batch = _torch_batch(_batch_np(cfg, M * mb_rows, seq))
     fns = StageFns(model, StageFnOptions(
         mb_rows=mb_rows, seq_len=seq, loss_scale=1.0 / (M * mb_rows * seq)))
     return fns, stages, io, batch
@@ -169,6 +186,12 @@ def test_split_backward_matches_fused_bitwise():
 def test_zamba2_split_backward_matches_fused_bitwise():
     """Mamba layers, the shared block's IO gradients and a padded chunk."""
     _check_split_backward_matches_fused("zamba2-1.2b", 5, 24)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-350m"])
+def test_family_split_backward_matches_fused_bitwise(arch):
+    """An MoE stage (dispatch, experts, combine) and the xLSTM blocks."""
+    _check_split_backward_matches_fused(arch, 4, 16)
 
 
 def test_threaded_bfw_matches_fused_run():
@@ -264,6 +287,14 @@ def test_chaotic_run_matches_fixed_order_bitwise(split):
 @pytest.mark.parametrize("split", [False, True], ids=["fused", "bfw"])
 def test_zamba2_chaotic_run_matches_fixed_order_bitwise(split):
     _check_chaotic_run_matches_fixed_order(split, "zamba2-1.2b", layers=3)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["fused", "bfw"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-350m"])
+def test_family_chaotic_run_matches_fixed_order_bitwise(arch, split):
+    """deepseek-moe: its dense layer then MoE layers on each stage's
+    microbatches; xlstm: mLSTM blocks and an sLSTM one (4 layers)."""
+    _check_chaotic_run_matches_fixed_order(split, arch, layers=4)
 
 
 def test_mid_run_finalize_raises_instead_of_corrupting_order():

@@ -2,8 +2,9 @@
 
 Same initial weights (the reference's, loaded by path), same synthetic
 batches: the 3-step loss trajectory of reduced paper-gpt3-large (2 stages,
-4 microbatches, seq 16) and of reduced zamba2 (Mamba layers and the shared
-attention block, seq 32) agrees within 1e-4, under hint bf and bfw.  Also:
+4 microbatches, seq 16), of reduced zamba2 (Mamba layers and the shared
+attention block, seq 32) and of the reduced MoE, xLSTM and M-RoPE archs
+agrees within 1e-4, under hint bf and bfw.  Also:
 each runtime flag of the reference's launcher runs, or stops with the
 reference's guard (or, where the reference ignores the flag, says so), and
 without CUDA the launcher raises unless asked for the CPU.
@@ -92,6 +93,20 @@ def test_zamba2_loss_trajectory_matches_reference_train_actor(hint,
     argv[argv.index("--seq") + 1] = "32"
     # the reference's own zamba2 loss rises at step 2 (warm-up to lr 1e-3
     # on random tokens): only the agreement is checked
+    _check_trajectory(argv, falls=False)
+
+
+@pytest.mark.parametrize("hint", ["bf", "bfw"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "grok-1-314b",
+                                  "xlstm-350m", "qwen2-vl-2b"])
+def test_family_loss_trajectory_matches_reference_train_actor(arch, hint):
+    """The MoE, xLSTM and M-RoPE families (the registries' reduced configs,
+    4 layers on 2 stages): deepseek-moe's dense and MoE layers, grok's
+    GEGLU experts, xlstm's 3:1 mLSTM/sLSTM pattern, qwen2-vl's embeddings
+    and M-RoPE positions (the synthetic streams are equal)."""
+    argv = [a for a in ARGS] + (["--hint", "bfw", "--split-backward"]
+                                if hint == "bfw" else [])
+    argv[argv.index("paper-gpt3-large")] = arch
     _check_trajectory(argv, falls=False)
 
 
