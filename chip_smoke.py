@@ -28,7 +28,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    distinct M-RoPE streams); one multimodal DAG step (forward and
    backward, every gradient compared); and the same for serving: seamless
    with 2 + 2 layers, 4 greedy tokens, then one more pass whose last
-   hidden state is compared;
+   hidden state is compared; and one step of the schedule-table executor
+   (``--runtime table``: gpt3 at full width cut to 4 layers, seq 256, a
+   2 x 4 mesh of ranks), the loss and every ZeRO-1 grad shard compared;
 5. the main paths, each through ``repro_torch.launch.train_actor`` (actor
    training, full width, 4 stages, 8 microbatches of 1 x 2048 tokens,
    bf16): ``paper-gpt3-large`` hint bf for 3 steps, then ``--hint bfw
@@ -39,7 +41,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    layers bf for 1; the multimodal DAG (``--workload
    multimodal``, qwen2-vl-2b full width) bf for 3 steps, bfw for 2, and 2
    bf steps with the reference's full-size encoder settings (encoder
-   microbatches of ~2048 tokens); then ``repro_torch.launch.serve`` (full
+   microbatches of ~2048 tokens); right after the language paths, the
+   schedule-table executor with ZeRO-1 (``--runtime table``,
+   ``phase_table_path``): gpt3 on a 1 x 4 mesh of 8 microbatches under
+   1f1b (twice: bitwise), gpipe, zb and rrfp, and on a 2 x 4 mesh of 4
+   microbatches per data rank under 1f1b, each run's K1 and K2 launches
+   exactly as ``table_launches`` counts them, its step-0 loss within 1e-4
+   of the actor bf run's, the 2 x 4 run's data replicas bitwise equal;
+   then ``repro_torch.launch.serve`` (full
    width, batch 8, cache 4096): ``seamless-m4t-large-v2`` for 32 tokens
    (the path of K3), ``zamba2-1.2b``, ``paper-gpt3-large``,
    ``deepseek-moe-16b`` (4 layers), ``xlstm-350m`` and ``qwen2-vl-2b`` on 4
@@ -1029,6 +1038,213 @@ def phase_main_path():
     return runs
 
 
+#: the table runtime's runs (phase_table_path): paper-gpt3-large at full
+#: width, 4 stages, 1 x 2048-token microbatches; (a) a 1 x 4 mesh of 8
+#: microbatches, the actor runs' exact batch of 16,384 tokens, under each
+#: schedule, 1f1b twice; (b) a 2 x 4 mesh (ZeRO-1 over two data ranks) of
+#: 4 microbatches per data rank, the same 16,384 tokens
+TABLE_ARGS = ["--runtime", "table", "--arch", "paper-gpt3-large",
+              "--full-size", "--stages", "4", "--mb-rows", "1", "--seq",
+              "2048", "--device", "cuda"]
+TABLE_RUNS = [("table 1f1b", ["--devices", "4", "--microbatches", "8",
+                              "--schedule", "1f1b", "--steps", "2"]),
+              ("table 1f1b again", ["--devices", "4", "--microbatches", "8",
+                                    "--schedule", "1f1b", "--steps", "2"]),
+              ("table gpipe", ["--devices", "4", "--microbatches", "8",
+                               "--schedule", "gpipe", "--steps", "2"]),
+              ("table zb", ["--devices", "4", "--microbatches", "8",
+                            "--schedule", "zb", "--steps", "2"]),
+              ("table rrfp", ["--devices", "4", "--microbatches", "8",
+                              "--schedule", "rrfp", "--steps", "2"]),
+              ("table 1f1b 2x4", ["--devices", "8", "--microbatches", "4",
+                                  "--schedule", "1f1b", "--steps", "2"])]
+#: relative tolerance of a table run's step-0 loss against the actor bf
+#: run's (same weights, same batch; the sums over microbatches and ranks
+#: run in another order)
+TOL_TABLE_LOSS = 1e-4
+
+
+def table_launches(model, table, data: int) -> dict[str, int]:
+    """K1 and K2 launches of one table step, counted from the layers and
+    the table: a stage forward launches one K1 per attention layer and
+    shared-block application and the norms of ``serve_launches`` (2 per
+    attention layer); F runs the layers once, B and W twice (the remat
+    forward, then the slot checkpoint's recompute in the backward), a
+    split B not at all at stage 0 (its input gradient has no receiver);
+    the last stage's final norm (outside the slot checkpoints) runs once
+    in each of its ops; every data rank runs the whole table."""
+    from repro_torch.pipeline.spec import OP_B, OP_F, OP_W
+
+    attn = {"attn", "attn_local", "attn_global", "moe", "dense"}
+    norms = {"attn": 2, "attn_local": 2, "attn_global": 2, "mamba": 2,
+             "moe": 2, "dense": 2, "mlstm": 2, "slstm": 2}
+    split = table.spec.split_backward
+    k1 = k2 = 0
+    for s in range(model.num_stages):
+        kinds = [model.layer_types[t] for t in model.type_ids[s] if t >= 0]
+        shared = (int(model.shared_flags[s].sum())
+                  if model.cfg.shared_attn_period else 0)
+        f1 = sum(k in attn for k in kinds) + shared
+        f2 = sum(norms[k] for k in kinds) + 2 * shared
+        ops = table.ops[s]
+        n_f = int((ops == OP_F).sum())
+        n_b = int((ops == OP_B).sum()) * (not split or s > 0)
+        n_w = int((ops == OP_W).sum()) * split
+        passes = n_f + 2 * n_b + 2 * n_w
+        k1 += passes * f1
+        k2 += passes * f2 + (n_f + n_b + n_w) * (s == model.num_stages - 1)
+    return {"flash_attention_fwd": data * k1, "rmsnorm": data * k2}
+
+
+def phase_small_table():
+    """One table step (executor only) of paper-gpt3-large at full width cut
+    to 4 layers (``registry.cut_depth``), float32, seq 256, on a 2 x 4 mesh
+    of 1 microbatch per data rank, on the card (kernels) against the CPU
+    (plain versions) on identical weights (made on the CPU, seed 3): the
+    loss and every all-gathered grad shard within TOL_MM of its own max."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import synth_batch
+    from repro_torch.launch import train
+    from repro_torch.models.convert import zero1_state_to_reference
+    from repro_torch.pipeline.executor import shard_batch
+
+    print("small table step (2 x 4 mesh), card (kernels) vs CPU (plain), "
+          "float32:")
+    cfg = dataclasses.replace(registry.cut_depth("paper-gpt3-large", 4),
+                              dtype=torch.float32)
+    f32 = {"io_grad_dtype": torch.float32, "flat_dtype": torch.float32}
+    init = {}
+
+    def init_params(model, mesh, device):
+        if not init:
+            init["sp"] = [model.init_stage_params(s, seed=3, device="cpu")
+                          for s in range(model.num_stages)]
+            init["io"] = model.init_io_params(seed=3, device="cpu")
+        return ([copy.deepcopy(init["sp"][mesh.coords(r)["model"]])
+                 .to(device) for r in range(mesh.size)],
+                [copy.deepcopy(init["io"]).to(device)
+                 for _ in range(mesh.size)])
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        t = train.build_trainer(
+            "paper-gpt3-large", data=2, stages=4, layers=None, mb_rows=1,
+            microbatches=1, seq=256, schedule="1f1b", device=dev, cfg=cfg,
+            init_params=init_params, exec_options=f32)
+        mesh = t["mesh"]
+        batch = train._device_batch(synth_batch(cfg, 2, 256, seed=5,
+                                                step=0), dev)
+        shards = shard_batch(mesh, batch, t["batch_specs"])
+        res = mesh.run(t["exec_fn"], [
+            (t["stage_params"][r], t["io_params"][r], shards[r])
+            for r in range(mesh.size)])
+        grads = zero1_state_to_reference(
+            t["model"], mesh, t["partition"],
+            [{"shards": {k: {"g": g} for k, g in o[1].items()},
+              "experts": {}} for o in res])["shards"]
+        out[dev] = (float(res[0][0]["loss"]), grads)
+        print(f"  {dev}: loss {out[dev][0]:.6f}  "
+              f"{time.perf_counter() - t0:.1f} s")
+        del t, res
+    l_cpu, l_gpu = out["cpu"][0], out["cuda"][0]
+    if not math.isfinite(l_gpu) or abs(l_gpu - l_cpu) > TOL_MM * abs(l_cpu):
+        raise AssertionError(f"table loss: card {l_gpu} vs CPU {l_cpu}")
+    worst = 0.0
+    for k, g in out["cpu"][1].items():
+        a, b = g["g"], out["cuda"][1][k]["g"]
+        rel = float(abs(a - b).max()) / max(float(abs(a).max()), 1e-30)
+        worst = max(worst, rel)
+        if not math.isfinite(rel) or rel > TOL_MM:
+            raise AssertionError(f"table grad shard {k}: max |card - CPU| "
+                                 f"is {rel:.3e} of max |grad|")
+    print(f"  loss within {TOL_MM:g} relative; {len(out['cpu'][1])} grad "
+          f"shards: max |card - CPU| at most {worst:.3e} of their max |.| "
+          f"(tolerance {TOL_MM:g})  ok")
+    torch.cuda.empty_cache()
+
+
+def phase_table_path(actor_runs):
+    """The table runtime's main path through ``repro_torch.launch.train
+    --runtime table`` (TABLE_ARGS + TABLE_RUNS): paper-gpt3-large at full
+    width through K1 and K2, four schedules on a 1 x 4 mesh and 1f1b on a
+    2 x 4 mesh.  The launch counts are zeroed just before each run and read
+    just after, and must be what ``table_launches`` counts; each run's
+    step-0 loss must be the actor bf run's (``actor_runs``: same weights,
+    same batch) within TOL_TABLE_LOSS; the two 1f1b runs must give the same
+    bits; after the 2 x 4 run the two data replicas' parameters must be
+    bitwise equal."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    runs = {}
+    l_actor = actor_runs["paper-gpt3-large", "bf"][0].losses[0]
+    for name, extra in TABLE_RUNS:
+        argv = TABLE_ARGS + extra
+        print(f"main path paper-gpt3-large ({name}): python -m "
+              f"repro_torch.launch.train " + " ".join(argv))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        run = train.main(argv)
+        counts = ops.launch_counts()
+        mem = torch.cuda.max_memory_allocated()
+        t = run.trainer
+        steps = len(run.losses)
+        want = {k: steps * v for k, v in table_launches(
+            t["model"], t["table"], t["mesh"].shape["data"]).items()}
+        tokens = t["batch_size"] * t["seq"]
+        print(f"  losses {run.losses}  gnorms {run.gnorms}  step seconds "
+              f"{run.step_seconds}  launches {counts} (from the code "
+              f"{want})  peak memory {mem / 2**30:.2f} GiB")
+        for i, sec in enumerate(run.step_seconds):
+            print(f"  step {i}: {sec:.3f} s  {tokens / sec:,.0f} tokens/s")
+        print("  card after the run (SM clock, max SM clock, power, "
+              "temperature): " + card("clocks.sm,clocks.max.sm,"
+                                      "power.draw,temperature.gpu"))
+        if not all(math.isfinite(x) for x in run.losses + run.gnorms):
+            raise AssertionError(f"the {name} run gave losses {run.losses}, "
+                                 f"gnorms {run.gnorms}")
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"the {name} run launched {counts}, the "
+                                 f"code counts {want}")
+        l0 = run.losses[0]
+        if abs(l0 - l_actor) > TOL_TABLE_LOSS * abs(l_actor):
+            raise AssertionError(f"{name} step-0 loss {l0} vs actor bf "
+                                 f"{l_actor}")
+        print(f"  step-0 loss {l0} vs actor bf {l_actor}: within "
+              f"{TOL_TABLE_LOSS:g} (relative)")
+        if name == "table 1f1b 2x4":
+            mesh = t["mesh"]
+            for r in range(mesh.size):
+                twin = mesh.rank_of(data=0, model=mesh.coords(r)["model"])
+                for a, b in zip(t["stage_params"][r].parameters(),
+                                t["stage_params"][twin].parameters()):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"rank {r} and its replica "
+                                             f"{twin} hold other params")
+            print(f"  the two data replicas' parameters are bitwise equal "
+                  f"after {steps} steps")
+        run.trainer = None
+        del t
+        runs["paper-gpt3-large", name] = (run, counts, mem)
+        torch.cuda.empty_cache()
+    a = runs["paper-gpt3-large", "table 1f1b"][0].losses
+    b = runs["paper-gpt3-large", "table 1f1b again"][0].losses
+    if a[:len(b)] != b:
+        raise AssertionError(f"two 1f1b runs differ: {a} vs {b}")
+    print(f"  two table 1f1b runs: the same bits over {len(b)} steps "
+          f"({b})")
+    return runs
+
+
 #: the runs of phase_runtime_flags: paper-gpt3-large, full size, COMMON_ARGS
 GPT3_ARGS = ["--arch", "paper-gpt3-large"] + COMMON_ARGS
 FIXED_ORDER = ["--schedule", "1f1b"]
@@ -1430,8 +1646,10 @@ def main(argv=None) -> int:
     phase_small_model()
     phase_small_multimodal()
     phase_small_serve()
+    phase_small_table()
     runs = phase_main_path()
     torch.cuda.empty_cache()
+    runs.update(phase_table_path(runs))
     runs.update(phase_runtime_flags())
     runs.update(phase_multimodal_path())
     runs.update(phase_serve_path())

@@ -3,6 +3,7 @@
     python -m repro_torch.launch.profile [--out PATH] [--depth N] [train flags]
     python -m repro_torch.launch.profile --workload multimodal [--out PATH]
     python -m repro_torch.launch.profile --serve [--out PATH] [serve flags]
+    python -m repro_torch.launch.profile --runtime table [--out PATH] [flags]
 
 Runs :func:`repro_torch.launch.train.train_actor` for three steps (default
 flags: the first main path of ``chip_smoke.py``: paper-gpt3-large full
@@ -15,7 +16,12 @@ flags, e.g. ``--arch zamba2-1.2b --full-size ...``, for another, and
 2048 text tokens, hint bf), or with ``--serve``
 :func:`repro_torch.launch.serve.serve` for three tokens (default flags:
 the serve main path, seamless-m4t-large-v2 full size, 4 stages, batch 8,
-cache 4096), and traces the third step with CUDA activity.  Prints the step's wall time, the device's
+cache 4096), with ``--runtime table``
+:func:`~repro_torch.launch.train.train_table` (default flags: the table
+phase's first run in ``chip_smoke.py``: paper-gpt3-large full size,
+``--devices 4 --stages 4``, 8 microbatches of 1 x 2048 tokens,
+``--schedule 1f1b``; every rank is a thread of this process), and traces
+the third step with CUDA activity.  Prints the step's wall time, the device's
 busy time (union of kernel intervals; every stage shares the default
 stream) and idle share, the time per kernel category and the heaviest
 kernels, and writes the same as JSON to ``--out``.  Needs a GPU; the
@@ -40,6 +46,10 @@ DEFAULT_ARGS = ["--arch", "paper-gpt3-large", "--full-size", "--stages", "4",
 DEFAULT_MM_ARGS = ["--arch", "qwen2-vl-2b", "--full-size", "--stages", "4",
                    "--microbatches", "8", "--mb-rows", "1", "--seq", "2048",
                    "--hint", "bf"]
+DEFAULT_TABLE_ARGS = ["--arch", "paper-gpt3-large", "--full-size",
+                      "--devices", "4", "--stages", "4", "--microbatches",
+                      "8", "--mb-rows", "1", "--seq", "2048", "--schedule",
+                      "1f1b"]
 DEFAULT_SERVE_ARGS = ["--arch", "seamless-m4t-large-v2", "--full-size",
                       "--stages", "4", "--batch", "8", "--cache-len", "4096"]
 #: (category, substrings of the kernel name), first match wins
@@ -128,9 +138,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--workload", default="language",
                     choices=("language", "multimodal"))
     ap.add_argument("--depth", type=int, default=None)
+    ap.add_argument("--runtime", default="actor", choices=("actor", "table"))
     own, rest = ap.parse_known_args(argv)
     if own.depth is not None and (own.serve or own.workload != "language"):
         raise SystemExit("--depth cuts a language training config")
+    if own.runtime == "table" and (own.serve or own.workload != "language"):
+        raise SystemExit("--runtime table trains the language workload")
     kw = {}
     if own.serve:
         args = serve.parser().parse_args((rest or DEFAULT_SERVE_ARGS)
@@ -141,6 +154,13 @@ def main(argv=None) -> dict:
             (rest or DEFAULT_MM_ARGS)
             + ["--workload", "multimodal", "--steps", "3"])
         run_fn = train.train_multimodal
+    elif own.runtime == "table":
+        args = train.parser().parse_args(
+            ["--runtime", "table"] + (rest or DEFAULT_TABLE_ARGS)
+            + ["--steps", "3"])
+        run_fn = train.train_table
+        if own.depth is not None:
+            kw["cfg"] = registry.cut_depth(args.arch, own.depth)
     else:
         args = train.parser().parse_args((rest or DEFAULT_ARGS)
                                          + ["--steps", "3"])
@@ -165,6 +185,7 @@ def main(argv=None) -> dict:
         raise RuntimeError("no device kernel was traced: the breakdown is "
                            "of device time and needs a GPU run")
     out["step_seconds"] = run.step_seconds
+    out["runtime"] = own.runtime
     out["card"] = torch.cuda.get_device_name(0)
     print(f"traced step: wall {out['step_wall_s']:.3f} s, kernels span "
           f"{out['kernel_window_s']:.3f} s, device busy "

@@ -1,8 +1,12 @@
-"""Training driver of the port: readiness-driven actor training.
+"""Training driver of the port: readiness-driven actor training, and the
+schedule-table executor with ZeRO-1 AdamW.
 
     PYTHONPATH=src python -m repro_torch.launch.train --runtime actor \
         --arch paper-gpt3-large --full-size --stages 4 --microbatches 8 \
         --seq 2048 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --runtime table \
+        --arch paper-gpt3-large --full-size --devices 8 --stages 4 \
+        --microbatches 4 --seq 2048 --schedule 1f1b --steps 3
 
 Port of ``train_actor`` of ``repro.launch.train``: thread-per-stage actors
 (the copied ``runtime/rrfp`` driver) dispatch the real stage callables of
@@ -33,14 +37,25 @@ checkpoint or the live step-start parameters), and the adaptive hint loop
 (``--adaptive``, ``--resynth-every``, ``--swap-threshold``).  Where the
 reference silently ignores a flag (``--ckpt-dir`` under ``--workload
 multimodal``, ``--resume`` without ``--ckpt-dir``, the adaptive knobs
-without ``--adaptive``), the port stops and says so.  ``--runtime table``
-moves with the multi-device slice.
+without ``--adaptive``), the port stops and says so.
+
+``--runtime table`` is the port of the reference's default runtime
+(``build_trainer`` and its loop): the schedule-table SPMD executor
+(``pipeline/executor.py``) and the ZeRO-1 optimizer on a ``(data ×
+model)`` mesh of ``--devices`` ranks, ``data = devices // stages``.  The
+ranks are threads of this process on one device (``launch/mesh.py``):
+each holds its stage's parameters, its own io parameters and its ZeRO-1
+state, so memory grows with every data replica.  The port's ``--runtime``
+default stays ``actor``; the reference's is ``table``.  The telemetry
+flags instrument the actor runtime and stop under ``table``, as the
+reference's do; the other actor-only flags stop too.
 
 Runs on the GPU unless ``--device cpu`` is given; without CUDA it raises.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import os
 import time
@@ -53,14 +68,24 @@ from repro_torch.configs import registry
 from repro_torch.core.costs import CostModel
 from repro_torch.core.hints import HintKind
 from repro_torch.core.taskgraph import PipelineSpec
-from repro_torch.data.synthetic import multimodal_batch, synth_batch
+from repro_torch.data.synthetic import (
+    PrefetchIterator,
+    multimodal_batch,
+    synth_batch,
+)
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.build import build
 from repro_torch.models.convert import (
     params_from_reference,
     params_to_reference,
+    rank_params_from_reference,
+    rank_params_to_reference,
     reference_layout,
     state_from_reference,
     state_to_reference,
+    zero1_state_from_reference,
+    zero1_state_layout,
+    zero1_state_to_reference,
 )
 from repro_torch.multimodal import (
     MULTIMODAL_ARCHS,
@@ -73,7 +98,18 @@ from repro_torch.multimodal import (
 from repro_torch.multimodal.stagefn import MultimodalStageOptions
 from repro_torch.obs import MetricsRegistry, export_perfetto
 from repro_torch.obs.report import explain
-from repro_torch.optim.adamw import AdamWConfig, make_host_update
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    make_host_update,
+    make_optimizer,
+)
+from repro_torch.pipeline import schedules
+from repro_torch.pipeline.executor import (
+    ExecOptions,
+    make_train_fn,
+    shard_batch,
+)
+from repro_torch.pipeline.sharding import partition_for
 from repro_torch.pipeline.stagefn import (
     ActorStageProgram,
     StageFnOptions,
@@ -83,7 +119,7 @@ from repro_torch.runtime.adaptive import AdaptiveConfig, AdaptiveScheduler
 from repro_torch.runtime.rrfp import ActorConfig, ActorDriver, Trace, parse_chaos
 from repro_torch.runtime.straggler import StragglerMonitor
 
-SCHEDULES = ("gpipe", "1f1b", "zb", "rrfp")
+SCHEDULES = tuple(schedules.BUILDERS)
 
 @dataclasses.dataclass
 class TrainRun:
@@ -99,6 +135,11 @@ class TrainRun:
     #: checkpoint I/O: one dict per save, resume or respawn restore
     #: (``op``, ``step``, ``seconds``, and ``bytes`` for a save)
     ckpt_log: list[dict] = dataclasses.field(default_factory=list)
+    #: ``--runtime table``: each step's global grad norm (before clipping)
+    gnorms: list[float] = dataclasses.field(default_factory=list)
+    #: ``--runtime table``: the :func:`build_trainer` dict (the per-rank
+    #: parameters and optimizer state after the last step)
+    trainer: Any = None
 
 
 def resolve_device(name: str) -> torch.device:
@@ -451,6 +492,185 @@ def train_actor(args, *, cfg=None, init_params=None,
 
 
 # ---------------------------------------------------------------------------
+# schedule-table executor + ZeRO-1 (--runtime table)
+# ---------------------------------------------------------------------------
+def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
+                  mb_rows: int, microbatches: int, seq: int,
+                  schedule: str = "rrfp", reduced: bool = True,
+                  lr: float = 1e-3, total_steps: int = 1000,
+                  device="cuda", cfg=None, init_params=None,
+                  exec_options: dict | None = None) -> dict:
+    """The table runtime's model, mesh, per-rank state and ``train_step``
+    (port of the reference's ``build_trainer``).
+
+    Every rank ``r`` holds ``stage_params[r]`` (its ``model`` index's
+    stage), ``io_params[r]`` and ``opt_state[r]``; the weights are the
+    actor path's seeded init (seed 0), copied to every replica, so a table
+    run and an actor run of one arch start from the same weights.
+    ``cfg`` replaces the config built from ``arch``/``layers``/``reduced``;
+    ``init_params(model, mesh, device) -> (stage_params, io_params)``
+    (per-rank lists) replaces the seeded init; ``exec_options`` replaces
+    :class:`ExecOptions` fields (the float32 checks set ``io_grad_dtype``
+    and ``flat_dtype``).  ``train_step(batch, step)``
+    shards a global ``[data * microbatches * mb_rows, seq]`` batch over the
+    data axis, runs the executor and the optimizer on every rank (one
+    ``mesh.run``) and returns rank 0's metrics and stats.
+    """
+    device = resolve_device(str(device))
+    if cfg is None:
+        cfg = (registry.reduced_config(arch, num_layers=layers)
+               if reduced else registry.get_arch(arch))
+    model = build(cfg, num_stages=stages)
+    mesh = make_mesh(data, stages, device=device)
+    if init_params is None:
+        sp0 = [model.init_stage_params(s, seed=0, device=device)
+               for s in range(stages)]
+        io0 = model.init_io_params(seed=0, device=device)
+        stage_params, io_params = [], []
+        for r in range(mesh.size):
+            s, first = mesh.coords(r)["model"], mesh.coords(r)["data"] == 0
+            stage_params.append(sp0[s] if first else copy.deepcopy(sp0[s]))
+            io_params.append(io0 if r == 0 else copy.deepcopy(io0))
+    else:
+        stage_params, io_params = init_params(model, mesh, device)
+    partition = partition_for(model, stage_params[0], io_params[0])
+
+    spec = PipelineSpec(stages, microbatches,
+                        split_backward=(schedule == "zb"))
+    table = schedules.BUILDERS[schedule](spec)
+    global_tokens = data * microbatches * mb_rows * seq
+    opts = ExecOptions(mb_rows=mb_rows, seq_len=seq,
+                       loss_scale=1.0 / global_tokens, **(exec_options or {}))
+    exec_fn, batch_specs = make_train_fn(model, table, mesh, opts, partition)
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=20, total_steps=total_steps)
+    opt_init, opt_update = make_optimizer(model, mesh, partition, opt_cfg)
+    opt_state = mesh.run(opt_init, list(zip(stage_params, io_params)))
+
+    def rank_step(sp, io, opt, batch, step):
+        metrics, grad_shards, expert_grads = exec_fn(sp, io, batch)
+        stats = opt_update(sp, io, opt, grad_shards, expert_grads, step)
+        return {**metrics, **stats}
+
+    def train_step(batch: dict, step: int) -> dict:
+        shards = shard_batch(mesh, batch, batch_specs)
+        out = mesh.run(rank_step, [
+            (stage_params[r], io_params[r], opt_state[r], shards[r], step)
+            for r in range(mesh.size)])
+        return out[0]
+
+    return dict(
+        cfg=cfg, model=model, mesh=mesh, table=table, spec=spec,
+        stage_params=stage_params, io_params=io_params,
+        opt_state=opt_state, train_step=train_step,
+        batch_size=data * microbatches * mb_rows, seq=seq,
+        partition=partition, exec_fn=exec_fn, batch_specs=batch_specs,
+        opts=opts, opt_cfg=opt_cfg,
+    )
+
+
+def _table_ckpt_tree(t: dict) -> dict:
+    """The reference's table checkpoint: stacked stage params, io params
+    and the global ZeRO-1 state (numpy)."""
+    sp, io = rank_params_to_reference(t["model"], t["mesh"],
+                                      t["stage_params"], t["io_params"])
+    return {"stage_params": sp, "io_params": io,
+            "opt_state": zero1_state_to_reference(
+                t["model"], t["mesh"], t["partition"], t["opt_state"])}
+
+
+def _table_restore(t: dict, store: CheckpointStore, step: int) -> None:
+    """Load checkpoint ``step`` into the trainer's per-rank state."""
+    model, mesh, device = t["model"], t["mesh"], t["mesh"].device
+    sp_meta, io_meta = reference_layout(
+        model, [t["stage_params"][mesh.rank_of(model=s)]
+                for s in range(model.num_stages)], t["io_params"][0])
+    target = {"stage_params": sp_meta, "io_params": io_meta,
+              "opt_state": zero1_state_layout(model, mesh, t["partition"],
+                                              t["opt_state"][0])}
+    state, _ = store.restore(step, target)
+    sp, io = rank_params_from_reference(model, mesh, state["stage_params"],
+                                        state["io_params"], device)
+    opt = zero1_state_from_reference(
+        model, mesh, t["partition"], state["opt_state"], device,
+        expert_dtype=t["opt_cfg"].expert_state_dtype)
+    with torch.no_grad():
+        for mods, new in ((t["stage_params"], sp), (t["io_params"], io)):
+            for m, n in zip(mods, new):
+                for p, q in zip(m.parameters(), n.parameters()):
+                    p.copy_(q)
+    for r, st in enumerate(opt):
+        t["opt_state"][r].clear()
+        t["opt_state"][r].update(st)
+
+
+def train_table(args, *, cfg=None, step_hook=None) -> TrainRun:
+    """Train with the schedule-table executor and ZeRO-1 AdamW on a
+    ``(devices // stages) × stages`` mesh of ranks (port of the
+    reference's ``--runtime table`` loop).  ``cfg`` as
+    :func:`build_trainer`'s; ``step_hook(step)`` runs after each step."""
+    if args.arch is None:
+        args.arch = "deepseek-7b"
+    data = args.devices // args.stages
+    if data < 1:
+        raise SystemExit(f"--runtime table needs --devices >= --stages "
+                         f"({args.devices} < {args.stages})")
+    t = build_trainer(
+        args.arch, data=data, stages=args.stages, layers=args.layers,
+        mb_rows=args.mb_rows, microbatches=args.microbatches, seq=args.seq,
+        schedule=args.schedule, reduced=not args.full_size, lr=args.lr,
+        total_steps=args.steps, device=args.device, cfg=cfg)
+    print(f"arch={args.arch} N={t['cfg'].param_count():,} params  "
+          f"mesh=({data}×{args.stages})  schedule={args.schedule}  "
+          f"bubble={t['table'].bubble_fraction():.2f}  "
+          f"device={t['mesh'].device}")
+    run = TrainRun(losses=[], step_seconds=[], trainer=t)
+    store = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
+    ckpt_every = _or(args.ckpt_every, 10)
+    start_step = 0
+    if store and args.resume and store.latest_step() is not None:
+        start_step = store.latest_step()
+        t0 = time.perf_counter()
+        _table_restore(t, store, start_step)
+        run.ckpt_log.append({"op": "resume", "step": start_step,
+                             "seconds": time.perf_counter() - t0})
+        print(f"resumed from step {start_step}")
+
+    def make(step):
+        return synth_batch(t["cfg"], t["batch_size"], t["seq"],
+                           seed=args.seed, step=step)
+
+    it = PrefetchIterator(make, start_step=start_step)
+    try:
+        for _ in range(args.steps - start_step):
+            step, arrays = next(it)
+            t0 = time.perf_counter()
+            m = t["train_step"](_device_batch(arrays, t["mesh"].device),
+                                step)
+            loss = float(m["loss"])  # the step's one device sync
+            dt = time.perf_counter() - t0
+            run.losses.append(loss)
+            run.step_seconds.append(dt)
+            run.gnorms.append(float(m["gnorm"]))
+            print(f"step {step:4d}  loss {loss:8.4f}  gnorm "
+                  f"{run.gnorms[-1]:7.3f}  lr {m['lr']:.2e}  "
+                  f"{dt*1e3:7.1f} ms")
+            if store and (step + 1) % ckpt_every == 0:
+                t1 = time.perf_counter()
+                store.save(step + 1, _table_ckpt_tree(t),
+                           meta={"arch": args.arch, "step": step + 1},
+                           asynchronous=True)
+                run.ckpt_log.append({"op": "save", "step": step + 1,
+                                     "seconds": time.perf_counter() - t1})
+            if step_hook is not None:
+                step_hook(step)
+        if store:
+            store.wait()
+    finally:
+        it.close()
+    return run
+
+
+# ---------------------------------------------------------------------------
 # multimodal DAG workload (--workload multimodal)
 # ---------------------------------------------------------------------------
 def _multimodal_stage_split(stages: int) -> tuple[int, int]:
@@ -632,7 +852,12 @@ def parser() -> argparse.ArgumentParser:
                          "multimodal)")
     ap.add_argument("--runtime", default="actor", choices=("table", "actor"),
                     help="actor: thread-per-stage readiness-driven runtime "
-                         "(the port's only runtime so far)")
+                         "(default); table: the schedule-table SPMD "
+                         "executor with ZeRO-1 AdamW on a (data x model) "
+                         "mesh of --devices ranks (the reference's default)")
+    ap.add_argument("--devices", type=int, default=8,
+                    help="--runtime table: ranks of the mesh; data = "
+                         "devices // stages")
     ap.add_argument("--workload", default="language",
                     choices=("language", "multimodal"),
                     help="language: linear-chain LM pipeline (default); "
@@ -753,17 +978,41 @@ def _check_flags(args) -> None:
                              f"ignores it without)")
 
 
+def _check_table_flags(args) -> None:
+    """``--runtime table``: the reference's guards on the telemetry flags,
+    and a stop for the other actor-runtime flags (which the reference
+    ignores under ``table``)."""
+    if args.metrics_report or args.export_perfetto or args.explain:
+        raise SystemExit("--metrics-report / --export-perfetto / --explain "
+                         "instrument the actor runtime; add --runtime actor "
+                         "(or --workload multimodal)")
+    if args.recover:
+        raise SystemExit("--recover drives the thread-per-stage actor "
+                         "runtime; add --runtime actor (language workload)")
+    if args.adaptive:
+        raise SystemExit("--adaptive drives the thread-per-stage actor "
+                         "runtime; add --runtime actor (language workload)")
+    actor_only = [f for f, on in (
+        ("--split-backward", args.split_backward), ("--chaos", args.chaos),
+        ("--record-trace", args.record_trace),
+        ("--replay-trace", args.replay_trace)) if on]
+    if actor_only:
+        raise SystemExit(f"{'/'.join(actor_only)}: actor-runtime flags; "
+                         f"--runtime table runs the table of --schedule "
+                         f"(zb is its split-backward table)")
+
+
 def main(argv=None) -> TrainRun:
     args = parser().parse_args(argv)
     if args.workload == "multimodal":
         args.runtime = "actor"  # the DAG only runs on the actor runtime
     if args.runtime == "table":
-        raise SystemExit("--runtime table (the compiled schedule-table SPMD "
-                         "executor) moves with the multi-device slice "
-                         "(ROADMAP.md queue 1, 'Multi-device, last')")
+        _check_table_flags(args)
     _check_flags(args)
     if args.workload == "multimodal":
         return train_multimodal(args)
+    if args.runtime == "table":
+        return train_table(args)
     return train_actor(args)
 
 

@@ -15,10 +15,11 @@ a dense FFN), Mamba-2 layers (``mamba``) with zamba2's shared attention
 block (``io.shared_blk``, applied before every ``shared_attn_period``-th
 layer), and xLSTM's ``mlstm`` and ``slstm`` blocks; the enc-dec kinds
 (``enc``, ``dec``) at decode only (``stage_decode``): the reference runs
-their forward only in its SPMD executor, which moves with the multi-device
-slice (ROADMAP.md queue 1, item 18), as do the MoE layouts over more than
-one device (``moe_layout`` ``ep``/``tp``; one device computes them as
-``none``).
+their forward only in its SPMD executor, whose port (``pipeline/executor.py``)
+runs the decoder families and leaves the enc-dec forward to a later slice
+(ROADMAP.md queue 1, item 18b); the MoE layouts over more than one data
+rank (``moe_layout`` ``ep``/``tp``; one rank computes them as ``none``)
+move with item 18a.
 
 Decode caches are trees of nested dicts, one per stage, each leaf stacked
 ``[l_max, batch, ...]`` (the reference's ``[S, l_max, ...]`` tree holds one
@@ -224,8 +225,8 @@ class ArchModel:
             raise NotImplementedError(
                 f"the {kind!r} forward is not in the port: the reference "
                 f"runs the enc-dec forward only in its SPMD executor "
-                f"(pipeline/executor.py), which moves with the multi-device "
-                f"slice (ROADMAP.md queue 1, item 18); its decode "
+                f"(pipeline/executor.py), whose port runs it in a later "
+                f"slice (ROADMAP.md queue 1, item 18b); its decode "
                 f"(stage_decode) is ported")
         if kind not in ATTN_KINDS:
             raise ValueError(kind)

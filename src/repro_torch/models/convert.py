@@ -22,6 +22,12 @@ whose dtype differs from the port parameter's raises instead of being cast
 (the float32 leaves of a bfloat16 model, e.g. a Mamba layer's ``a_log``,
 must stay float32 on both sides).
 
+The schedule-table executor's ranks each hold their stage's module and
+their own io module (:func:`rank_params_from_reference`), and its ZeRO-1
+optimizer state converts to the reference's global layout and back
+(:func:`zero1_state_to_reference`: per-leaf shards ``[S, dp_total * n]``,
+expert moments ``[S, l_max, ...]``).
+
 The other direction, :func:`params_to_reference` (and
 :func:`state_to_reference` for the optimizer's ``m``/``v`` lists), gives
 the reference's numpy trees, which is what the checkpoint store writes: a
@@ -255,3 +261,130 @@ def _count_leaves(tree) -> int:
     if isinstance(tree, list):
         return sum(_count_leaves(v) for v in tree)
     return 1
+
+
+# ---------------------------------------------------------------------------
+# the schedule-table executor's per-rank parameters and ZeRO-1 state
+# ---------------------------------------------------------------------------
+def rank_params_from_reference(model: ArchModel, mesh, stage_params_np: dict,
+                               io_params_np: dict, device
+                               ) -> tuple[list[StageParams], list[IOParams]]:
+    """Every rank's own stage module (its ``model`` index's stage) and io
+    module holding the reference's stacked ``[S, ...]`` weights: each rank
+    gets its own copy, as each device holds its own."""
+    stage_params, io_params = [], []
+    for r in range(mesh.size):
+        (sp,), io = params_from_reference(
+            model, stage_params_np, io_params_np, device,
+            stages=[mesh.coords(r)["model"]])
+        stage_params.append(sp)
+        io_params.append(io)
+    return stage_params, io_params
+
+
+def rank_params_to_reference(model: ArchModel, mesh, stage_params,
+                             io_params) -> tuple[dict, dict]:
+    """The reference's numpy (stage, IO) trees of per-rank modules (the
+    ranks of data index 0; the data replicas hold the same values)."""
+    row0 = {mesh.coords(r)["model"]: r for r in range(mesh.size)
+            if all(v == 0 for a, v in mesh.coords(r).items()
+                   if a != "model")}
+    return params_to_reference(
+        model, [stage_params[row0[s]] for s in range(model.num_stages)],
+        io_params[row0[0]])
+
+
+def _data_dim(spec: tuple) -> int | None:
+    """The dim of a rank's ``[l_max, ...]`` leaf sharded over ``data``."""
+    return spec.index("data") - 1 if "data" in spec else None
+
+
+def zero1_state_to_reference(model: ArchModel, mesh, partition,
+                             opt_states: list[dict],
+                             dp_axes: tuple = ("data",)) -> dict:
+    """The reference's global ZeRO-1 state of per-rank states (numpy):
+    ``["shards"][leaf]["master"|"m"|"v"]`` ``[S, dp_total * n]`` (row
+    ``s``, columns ``i * n`` to ``(i + 1) * n``: the shard of the rank of
+    stage ``s`` and dp index ``i``; the reference's ``P("model",
+    dp_axes)`` of its ``[1, n]`` rank shards) and
+    ``["experts"][leaf]["m"|"v"]`` ``[S, l_max, ...]`` (data shards
+    concatenated along their spec's ``data`` dim)."""
+    S, dp = model.num_stages, mesh.group_size(dp_axes)
+    where: dict[tuple[int, int], int] = {}
+    for r in range(mesh.size):
+        where.setdefault((mesh.coords(r)["model"],
+                          mesh.group_index(dp_axes, r)), r)
+    out: dict = {"shards": {}, "experts": {}}
+    for k, st in opt_states[0]["shards"].items():
+        out["shards"][k] = {
+            name: np.stack([np.concatenate([
+                _host(opt_states[where[s, i]]["shards"][k][name])
+                for i in range(dp)]) for s in range(S)])
+            for name in st}
+    for k, st in opt_states[0]["experts"].items():
+        dim = _data_dim(partition.stage_specs[k])
+        out["experts"][k] = {}
+        for name in st:
+            per_stage = []
+            for s in range(S):
+                parts = [_host(opt_states[where[s, i]]["experts"][k][name])
+                         for i in range(dp if dim is not None else 1)]
+                per_stage.append(np.concatenate(parts, axis=dim)
+                                 if dim is not None else parts[0])
+            out["experts"][k][name] = np.stack(per_stage)
+    return out
+
+
+def zero1_state_from_reference(model: ArchModel, mesh, partition,
+                               tree: dict, device,
+                               dp_axes: tuple = ("data",),
+                               expert_dtype=torch.float32) -> list[dict]:
+    """The inverse of :func:`zero1_state_to_reference`: each rank's state
+    (shards float32, expert state in ``expert_dtype``)."""
+    dp = mesh.group_size(dp_axes)
+    states = []
+    for r in range(mesh.size):
+        s = mesh.coords(r)["model"]
+        i = mesh.group_index(dp_axes, r)
+        shards = {k: {name: tensor_from_numpy(
+            np.split(np.asarray(a)[s], dp)[i], device).float()
+            for name, a in st.items()} for k, st in tree["shards"].items()}
+        experts = {}
+        for k, st in tree["experts"].items():
+            dim = _data_dim(partition.stage_specs[k])
+            experts[k] = {}
+            for name, a in st.items():
+                a = np.asarray(a)[s]
+                if dim is not None:
+                    a = np.array_split(a, mesh.shape["data"], axis=dim)[
+                        mesh.coords(r)["data"]]
+                experts[k][name] = tensor_from_numpy(a, device).to(
+                    expert_dtype)
+        states.append({"shards": shards, "experts": experts})
+    return states
+
+
+def zero1_state_layout(model: ArchModel, mesh, partition, opt_state: dict,
+                       dp_axes: tuple = ("data",)) -> dict:
+    """The global ZeRO-1 state's ``meta`` tensors (shapes and dtypes, no
+    data): a checkpoint's restore target, from one rank's state."""
+    S, dp = model.num_stages, mesh.group_size(dp_axes)
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def expert_shape(k, t):
+        shape = list(t.shape)
+        dim = _data_dim(partition.stage_specs[k])
+        if dim is not None:
+            shape[dim] *= mesh.shape["data"]
+        return (S, *shape)
+
+    return {
+        "shards": {k: {n: meta((S, dp * t.shape[0]), t.dtype)
+                       for n, t in st.items()}
+                   for k, st in opt_state["shards"].items()},
+        "experts": {k: {n: meta(expert_shape(k, t), t.dtype)
+                        for n, t in st.items()}
+                    for k, st in opt_state["experts"].items()},
+    }

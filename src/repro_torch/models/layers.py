@@ -215,7 +215,7 @@ def decode_attention_block(p: Attention, x, cache: dict, pos: int,
     if axis_name is not None:
         raise NotImplementedError(
             "sequence-parallel decode (a cache sharded over devices) moves "
-            "with the multi-device slice (ROADMAP.md queue 1, item 18)")
+            "with a later multi-device slice (ROADMAP.md queue 1, item 18c)")
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = attention_qkv(p, x, cfg)

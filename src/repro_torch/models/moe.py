@@ -18,7 +18,8 @@ with an MoE stage.
 The reference's expert-parallel (``ep``) and expert-tensor-parallel
 (``tp``) layouts exchange tokens between devices; on one device
 (``axis_size == 1``) both compute the layout ``none`` function, and more
-devices move with the multi-device slice (ROADMAP.md queue 1, item 18).
+devices move with the ``torch.distributed`` mesh backend (ROADMAP.md queue
+1, item 18a).
 """
 from __future__ import annotations
 
@@ -111,7 +112,7 @@ def moe_ffn(p: MoEFFN, x, cfg: ArchConfig, *, layout: str = "none",
     if layout != "none" and axis_size > 1:
         raise NotImplementedError(
             f"MoE layout {layout!r} over {axis_size} devices moves with the "
-            f"multi-device slice (ROADMAP.md queue 1, item 18)")
+            f"torch.distributed mesh backend (ROADMAP.md queue 1, item 18a)")
     moe = cfg.moe
     b, s, d = x.shape
     x2 = x.reshape(-1, d)

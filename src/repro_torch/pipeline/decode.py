@@ -6,8 +6,8 @@ rows staircase through the S stages (the F-only table: at tick t stage s
 runs group t - s), each stage updating its own cache rows in place, and
 the last stage takes the greedy next token from ``rmsnorm(h, final_ln) @
 head.T`` in float32.  Sequence-parallel caches (``sp_mode``), data-parallel
-axes and multi-pod meshes move with the multi-device slice (ROADMAP.md
-queue 1, item 18).
+axes and multi-pod meshes move with a later multi-device slice
+(ROADMAP.md queue 1, item 18c).
 """
 from __future__ import annotations
 

@@ -35,6 +35,8 @@ class StageFnOptions:
     seq_len: int             # tokens per row
     ce_chunk: int = 0        # 0 -> auto from vocab size
     loss_scale: float = 1.0  # applied to the backward seed
+    data_size: int = 1       # the mesh's data axis (the MoE layouts')
+    moe_layout: str = "none"  # none | ep | tp (one device: none)
 
 
 def default_ce_chunk(cfg, requested: int = 0) -> int:
@@ -104,8 +106,8 @@ class StageFns:
         device = bm["labels"].device
         pos = torch.arange(seq, dtype=torch.int32, device=device)
         a = {"positions": pos[None].expand(self.opts.mb_rows, seq),
-             "data_size": 1,
-             "moe_layout": "none"}  # one device: experts computed locally
+             "data_size": self.opts.data_size,
+             "moe_layout": self.opts.moe_layout}
         if "mrope" in bm:
             a["mrope"] = bm["mrope"]
         return a

@@ -4,7 +4,7 @@ The port's counterpart of the reference ``runtime/elastic.py`` keeps only
 what the runtime driver needs on its remap path: ``plan_remesh`` (the
 largest feasible (data x model) grid) and ``remap_stages`` (fold dead
 stages onto their nearest survivors).  ``relayout_stage_params`` moves
-with the multi-device slice (ROADMAP queue 1).
+with a later multi-device slice (ROADMAP queue 1, item 18d).
 """
 from __future__ import annotations
 

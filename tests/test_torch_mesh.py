@@ -1,0 +1,174 @@
+"""The port's in-process mesh (``repro_torch.launch.mesh``).
+
+Coordinates follow ``jax.make_mesh``'s row-major layout; the collectives
+have JAX's semantics (held against ``jax.lax`` on 8 host devices in
+``tests/test_torch_executor.py`` through the executor, and here against
+numpy); every rank receives its own copy; a rank that calls a collective
+the others never reach raises within its timeout instead of hanging, and
+``Mesh.run`` re-raises the first rank's error.
+"""
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.launch.mesh import (
+    CollectiveError,
+    Mesh,
+    make_mesh,
+    make_production_mesh,
+)
+
+
+def _run(mesh, fn):
+    return mesh.run(fn, [(r,) for r in range(mesh.size)])
+
+
+def test_coordinates_are_row_major_with_model_fastest():
+    mesh = make_mesh(2, 4, device="cpu")
+    assert mesh.shape == {"data": 2, "model": 4} and mesh.size == 8
+    assert [tuple(mesh.coords(r).values()) for r in range(8)] == [
+        (d, m) for d in range(2) for m in range(4)]
+    assert mesh.rank_of(data=1, model=2) == 6
+    pods = make_mesh(2, 2, pods=2, device="cpu")
+    assert pods.axis_names == ("pod", "data", "model")
+    assert pods.coords(5) == {"pod": 1, "data": 0, "model": 1}
+    assert make_production_mesh(device="cpu").shape == {"data": 16,
+                                                        "model": 16}
+    assert make_production_mesh(multi_pod=True, device="cpu").size == 512
+
+
+def test_axis_index_and_group_index_inside_run():
+    mesh = make_mesh(2, 4, device="cpu")
+    out = _run(mesh, lambda r: (mesh.axis_index("data"),
+                                mesh.axis_index("model"),
+                                mesh.group_index(("data", "model")),
+                                mesh.group_index(("model", "data"))))
+    for r, (d, m, dm, md) in enumerate(out):
+        assert (d, m, dm) == (r // 4, r % 4, r)
+        assert md == m * 2 + d
+    with pytest.raises(RuntimeError, match="outside Mesh.run"):
+        mesh.axis_index("model")
+
+
+@pytest.mark.parametrize("axes", ["model", "data", ("data", "model")])
+def test_psum_sums_the_axis_group_in_rank_order(axes):
+    mesh = make_mesh(2, 4, device="cpu")
+    vals = [torch.tensor([float(2 ** r), 1.0 / (r + 1)]) for r in range(8)]
+    out = _run(mesh, lambda r: mesh.psum(vals[r], axes))
+    members = {"model": lambda r: [r // 4 * 4 + i for i in range(4)],
+               "data": lambda r: [r % 4, r % 4 + 4]}
+    for r, got in enumerate(out):
+        group = (list(range(8)) if isinstance(axes, tuple)
+                 else members[axes](r))
+        want = vals[group[0]].clone()
+        for g in group[1:]:
+            want += vals[g]
+        assert torch.equal(got, want)
+        assert got.data_ptr() != vals[r].data_ptr()
+    assert len({o.data_ptr() for o in out}) == 8  # each rank its own copy
+
+
+def test_psum_scatter_and_all_gather_are_inverse_layouts():
+    mesh = make_mesh(2, 4, device="cpu")
+    rng = np.random.default_rng(0)
+    xs = [torch.from_numpy(rng.standard_normal((2, 5)).astype(np.float32))
+          for _ in range(8)]
+
+    def fn(r):
+        part = mesh.psum_scatter(xs[r], "data")
+        return part, mesh.all_gather(part, "data")
+
+    out = _run(mesh, fn)
+    for r, (part, full) in enumerate(out):
+        a, b = xs[r % 4], xs[r % 4 + 4]
+        np.testing.assert_array_equal(part.numpy(),
+                                      (a + b)[r // 4].numpy())
+        np.testing.assert_array_equal(full.numpy(),
+                                      (a + b).reshape(-1).numpy())
+    with pytest.raises(ValueError, match="group size"):
+        _run(mesh, lambda r: mesh.psum_scatter(torch.zeros(3, 2), "data"))
+
+
+def test_ppermute_moves_one_hop_and_zero_fills():
+    mesh = make_mesh(1, 4, device="cpu")
+    perm = [(i, i + 1) for i in range(3)]
+    xs = [torch.full((2,), float(r)) for r in range(4)]
+    out = _run(mesh, lambda r: mesh.ppermute((xs[r], r + 10, True),
+                                             "model", perm))
+    assert out[0][1:] == (0, False) and not out[0][0].any()
+    for r in range(1, 4):
+        t, mb, valid = out[r]
+        assert torch.equal(t, xs[r - 1]) and (mb, valid) == (r + 9, True)
+        assert t.data_ptr() != xs[r - 1].data_ptr()
+
+
+def test_runs_are_bitwise_reproducible():
+    mesh = make_mesh(2, 4, device="cpu")
+    rng = np.random.default_rng(1)
+    xs = [torch.from_numpy(rng.standard_normal(1000).astype(np.float32)
+                           * 10 ** r) for r in range(8)]
+    first = _run(mesh, lambda r: mesh.psum(xs[r], ("data", "model")))
+    for _ in range(3):
+        again = _run(mesh, lambda r: mesh.psum(xs[r], ("data", "model")))
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_a_rank_that_skips_a_collective_raises_not_hangs():
+    mesh = Mesh({"data": 1, "model": 4}, timeout=60.0)
+
+    def fn(r):
+        if r == 2:
+            return None  # never reaches the psum
+        return mesh.psum(torch.ones(1), "model")
+
+    t0 = time.monotonic()
+    with pytest.raises(CollectiveError, match=r"psum over model.*\[2\]"):
+        _run(mesh, fn)
+    assert time.monotonic() - t0 < 30  # not the 60 s timeout
+
+
+def test_a_collective_nobody_else_reaches_times_out_naming_it():
+    mesh = Mesh({"data": 2, "model": 2}, timeout=0.5)
+
+    def fn(r):
+        if r == 0:
+            return mesh.psum(torch.ones(1), "data")  # rank 2 never comes
+        if r == 2:
+            time.sleep(1.5)  # busy past the timeout, then returns
+        return None
+
+    t0 = time.monotonic()
+    with pytest.raises(CollectiveError) as err:
+        _run(mesh, fn)
+    msg = str(err.value)
+    assert "rank 0" in msg and "psum over data" in msg
+    assert "timed out after 0.5 s" in msg and "[2]" in msg
+    assert time.monotonic() - t0 < 10
+
+
+def test_mismatched_collectives_and_rank_errors_surface_in_the_caller():
+    mesh = make_mesh(1, 2, device="cpu", timeout=30.0)
+
+    def mismatch(r):
+        x = torch.ones(2)
+        return (mesh.psum(x, "model") if r == 0 else
+                mesh.all_gather(x, "model"))
+
+    with pytest.raises(CollectiveError, match="different collectives"):
+        _run(mesh, mismatch)
+
+    def boom(r):
+        if r == 1:
+            raise KeyError("rank one's own fault")
+        return mesh.psum(torch.ones(1), "model")
+
+    t0 = time.monotonic()
+    with pytest.raises(KeyError, match="rank one's own fault") as err:
+        _run(mesh, boom)
+    assert any("rank 1" in n for n in err.value.__notes__)
+    assert time.monotonic() - t0 < 10
+    # the mesh is reusable after a failed run
+    assert [float(x) for x in _run(mesh, lambda r: mesh.psum(
+        torch.ones(()), "model"))] == [2.0, 2.0]

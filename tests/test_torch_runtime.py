@@ -156,7 +156,9 @@ def test_port_imports_neither_jax_nor_repro():
         "assert len(names) > 30, names\n"
         "for want in ('multimodal.model', 'multimodal.stagefn',\n"
         "             'multimodal.costs', 'runtime.rrfp.conformance',\n"
-        "             'core.bounds', 'data.synthetic'):\n"
+        "             'core.bounds', 'data.synthetic', 'launch.mesh',\n"
+        "             'pipeline.executor', 'pipeline.sharding',\n"
+        "             'pipeline.schedules', 'optim.adamw'):\n"
         "    assert 'repro_torch.' + want in names, want\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -175,8 +175,16 @@ def test_runtime_flags_run_or_raise_the_reference_guard(case, tmp_path,
 
 
 def test_runtime_table_is_deferred_to_the_multi_device_slice():
-    with pytest.raises(SystemExit, match="Multi-device"):
-        train.main(ARGS + ["--runtime", "table"])
+    """What of ``--runtime table`` waits for the multi-device slice (the
+    MoE collectives over more than one data rank, ROADMAP item 18a) raises
+    through the launcher, naming it; the rest trains
+    (tests/test_torch_table.py)."""
+    argv = ["--runtime", "table", "--arch", "deepseek-moe-16b", "--stages",
+            "2", "--devices", "4", "--layers", "4", "--microbatches", "2",
+            "--mb-rows", "1", "--seq", "16", "--steps", "1", "--device",
+            "cpu"]
+    with pytest.raises(NotImplementedError, match="item 18a"):
+        train.main(argv)
 
 
 def test_default_device_raises_without_cuda():
