@@ -14,6 +14,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    tolerance; then the kernel's time at each main path's shape beside its
    plain version's, one library call's (a yardstick only: the port never
    calls it) and the card's bound for the same work;
+   K1 also with ``causal=False`` (the enc-dec encoder and
+   cross-attention) at sq == sk and sq != sk with ragged edges, in both
+   dtypes, and the plain attention backward there against autograd of
+   the plain forward;
    every K1, K3 and K4 check launches twice and requires the same bits,
    and each of their wrappers must refuse a view off 16-byte alignment
    (K4's bf16 kernel; its float32 kernel is the scalar one); K3 (flash
@@ -30,7 +34,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    with 2 + 2 layers, 4 greedy tokens, then one more pass whose last
    hidden state is compared; and one step of the schedule-table executor
    (``--runtime table``: gpt3 at full width cut to 4 layers, seq 256, a
-   2 x 4 mesh of ranks), the loss and every ZeRO-1 grad shard compared;
+   2 x 4 mesh of ranks; seamless cut to 2 encoder + 2 decoder layers, 256
+   tokens and 384 encoder frames, 1 x 2), the loss and every ZeRO-1 grad
+   shard compared;
 5. the main paths, each through ``repro_torch.launch.train_actor`` (actor
    training, full width, 4 stages, 8 microbatches of 1 x 2048 tokens,
    bf16): ``paper-gpt3-large`` hint bf for 3 steps, then ``--hint bfw
@@ -48,6 +54,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    microbatches per data rank under 1f1b, each run's K1 and K2 launches
    exactly as ``table_launches`` counts them, its step-0 loss within 1e-4
    of the actor bf run's, the 2 x 4 run's data replicas bitwise equal;
+   then the enc-dec ``seamless-m4t-large-v2`` at full width and depth
+   (24 + 24 layers) through ``--runtime table`` on a 1 x 4 mesh, 8
+   microbatches of 2048 decoder tokens and 2048 encoder frames, 1f1b
+   twice (bitwise), its launches as ``table_launches`` counts them;
    then ``repro_torch.launch.serve`` (full
    width, batch 8, cache 4096): ``seamless-m4t-large-v2`` for 32 tokens
    (the path of K3), ``zamba2-1.2b``, ``paper-gpt3-large``,
@@ -111,6 +121,22 @@ ATTN_SHAPES = [
     (1, 2048, 8, 4, 256, 1024),
     (1, 2048, 8, 4, 256, 0),
     (1, 1000, 8, 4, 256, 300),
+    (1, 2048, 16, 16, 64, 0),
+]
+#: K1 with causal=False, (b, sq, sk, hq, hkv, hd): seamless's encoder and
+#: cross-attention (2048 decoder tokens, 2048 encoder frames), a
+#: cross-attention over fewer frames, the small table check's (256 tokens
+#: against 384 frames), then ragged sq != sk shapes: GQA hd 96 (keys past
+#: two 256-key blocks of the plain backward), more queries than keys (MQA
+#: hd 128), hd 32 and hd 256
+NONCAUSAL_SHAPES = [
+    (1, 2048, 2048, 16, 16, 64),
+    (1, 2048, 1536, 16, 16, 64),
+    (1, 256, 384, 16, 16, 64),
+    (2, 333, 517, 8, 2, 96),
+    (1, 517, 333, 4, 1, 128),
+    (1, 200, 777, 4, 2, 32),
+    (1, 700, 1100, 8, 4, 256),
 ]
 #: (b, s, nh, hd, ds, chunk): the zamba2 path, then tests/test_kernels.py
 SSD_SHAPES = [
@@ -156,6 +182,11 @@ PATH_SHAPES = {
                     "norm": [(2048, 1536)], "ssd": []},
     "xlstm-350m": {"attn": [], "norm": [(2048, 1024)], "ssd": []},
     "grok-1-314b serve": {"attn": [], "norm": [(1, 6144)], "ssd": []},
+    # the decoder's causal self-attention (its non-causal encoder and
+    # cross-attention are timed at NONCAUSAL_SHAPES[0]); 2048 rows of the
+    # decoder tokens or of the encoder frames
+    "seamless-m4t-large-v2 table": {"attn": [ATTN_SHAPES[-1]],
+                                    "norm": [(2048, 1024)], "ssd": []},
 }
 
 COMMON_ARGS = ["--runtime", "actor", "--full-size", "--stages", "4",
@@ -321,14 +352,91 @@ def kernel_entry(name, route, source, replaces, timings):
 def attention_inputs(shape, dtype, seed):
     """Pre-scaled q and k, v in the model's [b, s, h, hd] storage, viewed as
     the kernel's [b, h, s, hd] (the main path's strides)."""
+    b, sq, hq, hkv, hd, _ = shape
+    return noncausal_inputs((b, sq, sq, hq, hkv, hd), dtype, seed)
+
+
+def noncausal_inputs(shape, dtype, seed):
+    """attention_inputs' tensors for sq queries against sk keys (shape
+    (b, sq, sk, hq, hkv, hd))."""
     import torch
 
-    b, sq, hq, hkv, hd, _ = shape
+    b, sq, sk, hq, hkv, hd = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, sq, hq, hd), generator=g, device="cuda") * hd ** -0.5
-    k = torch.randn((b, sq, hkv, hd), generator=g, device="cuda")
-    v = torch.randn((b, sq, hkv, hd), generator=g, device="cuda")
+    k = torch.randn((b, sk, hkv, hd), generator=g, device="cuda")
+    v = torch.randn((b, sk, hkv, hd), generator=g, device="cuda")
     return tuple(t.to(dtype).transpose(1, 2) for t in (q, k, v))
+
+
+def phase_attention_noncausal(timings):
+    """K1 with causal=False at NONCAUSAL_SHAPES, float32 and bf16: out and
+    lse against the plain version, a second launch bitwise; the plain
+    backward (``flash_attention_bwd_plain``, fed the kernel's out and lse
+    as in training) against autograd of the plain forward; then the
+    seamless shape's time beside SDPA's (no mask) and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    print("K1 flash_attention_fwd causal=False (the enc-dec encoder and "
+          "cross-attention) vs its plain version:")
+    errs = {}
+    for shape in NONCAUSAL_SHAPES:
+        b, sq, sk, hq, hkv, hd = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            q, k, v = noncausal_inputs(shape, dtype, seed=hash(shape) % 2**31)
+            out, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            want, want_lse = fa.flash_attention_fwd_plain(q, k, v,
+                                                          causal=False)
+            tag = f"b{b} sq{sq} sk{sk} hq{hq} hkv{hkv} hd{hd} non-causal {dn}"
+            errs[shape, dn] = check_close(f"{tag} out", out, want, TOL[dn])
+            check_close(f"{tag} lse", lse, want_lse, TOL_LSE)
+            again, lse2 = fa.flash_attention_fwd(q, k, v, causal=False)
+            same_bits(f"{tag} second launch", (out, lse), (again, lse2))
+            dout = torch.randn(out.shape, device="cuda").to(dtype)
+            got = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                               causal=False)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o, _ = fa.flash_attention_fwd_plain(*leaves, causal=False)
+            want_g = torch.autograd.grad(o, leaves, dout)
+            for name, a, w in zip(("dq", "dk", "dv"), got, want_g):
+                # bf16: the plain backward rounds p and ds to bf16 (the
+                # reference's rounding points), autograd keeps them float32,
+                # and a sum over keys may cancel: relative to max |grad|
+                tol, rtol = ((TOL[dn], None) if dn == "float32" else
+                             (TOL[dn] * float(w.abs().max()), 0.0))
+                check_close(f"{tag} plain backward {name} vs autograd", a, w,
+                            tol, rtol)
+            del out, lse, want, want_lse, got, want_g, leaves, o
+    shape = NONCAUSAL_SHAPES[0]
+    b, sq, sk, hq, hkv, hd = shape
+    sets = [noncausal_inputs(shape, torch.bfloat16, seed=s)
+            for s in range(4)]
+    ms = time_ms(lambda q, k, v: fa.flash_attention_fwd(q, k, v,
+                                                        causal=False), sets)
+    plain_ms = time_ms(lambda q, k, v: fa.flash_attention_fwd_plain(
+        q, k, v, causal=False), sets, iters=4)
+    lib_sets = [tuple(t.contiguous() for t in s) for s in sets]
+    lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, scale=1.0, enable_gqa=hq != hkv), lib_sets)
+    flops = 4 * b * hq * sq * sk * hd  # QK^T + PV over every pair
+    nbytes = (2 * b * sq * hq * hd + 2 * b * sk * hkv * hd) * 2 \
+        + b * hq * sq * 4
+    bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    path = "seamless-m4t-large-v2 table"
+    print(f"  {path} non-causal shape {shape} bfloat16: kernel {ms:.4f} ms  "
+          f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP / 989 TFLOP/s, "
+          f"{nbytes:.4g} B / 3.35 TB/s)")
+    timings.append({"path": path, "shape": list(shape), "causal": False,
+                    "dtype": "bfloat16",
+                    "max_abs_err": errs[shape, "bfloat16"], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms})
 
 
 def phase_attention(record):
@@ -402,6 +510,7 @@ def phase_attention(record):
                             "max_abs_err": errs[shape, dn], "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "library_ms": lib_ms})
+    phase_attention_noncausal(timings)
     record["flash_attention_fwd"] = kernel_entry(
         "flash_attention_fwd", "cuda",
         "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1066,25 +1175,29 @@ TOL_TABLE_LOSS = 1e-4
 
 def table_launches(model, table, data: int) -> dict[str, int]:
     """K1 and K2 launches of one table step, counted from the layers and
-    the table: a stage forward launches one K1 per attention layer and
-    shared-block application and the norms of ``serve_launches`` (2 per
-    attention layer); F runs the layers once, B and W twice (the remat
+    the table: a stage forward launches one K1 per attention layer,
+    ``enc`` layer and shared-block application, two per ``dec`` layer
+    (self- and cross-attention), and the norms of ``serve_launches`` (2 per
+    attention or ``enc`` layer, 3 per ``dec``); F runs the layers once, B
+    and W twice (the remat
     forward, then the slot checkpoint's recompute in the backward), a
     split B not at all at stage 0 (its input gradient has no receiver);
     the last stage's final norm (outside the slot checkpoints) runs once
     in each of its ops; every data rank runs the whole table."""
     from repro_torch.pipeline.spec import OP_B, OP_F, OP_W
 
-    attn = {"attn", "attn_local", "attn_global", "moe", "dense"}
+    attn = {"attn": 1, "attn_local": 1, "attn_global": 1, "moe": 1,
+            "dense": 1, "enc": 1, "dec": 2}
     norms = {"attn": 2, "attn_local": 2, "attn_global": 2, "mamba": 2,
-             "moe": 2, "dense": 2, "mlstm": 2, "slstm": 2}
+             "moe": 2, "dense": 2, "mlstm": 2, "slstm": 2, "enc": 2,
+             "dec": 3}
     split = table.spec.split_backward
     k1 = k2 = 0
     for s in range(model.num_stages):
         kinds = [model.layer_types[t] for t in model.type_ids[s] if t >= 0]
         shared = (int(model.shared_flags[s].sum())
                   if model.cfg.shared_attn_period else 0)
-        f1 = sum(k in attn for k in kinds) + shared
+        f1 = sum(attn.get(k, 0) for k in kinds) + shared
         f2 = sum(norms[k] for k in kinds) + 2 * shared
         ops = table.ops[s]
         n_f = int((ops == OP_F).sum())
@@ -1096,12 +1209,25 @@ def table_launches(model, table, data: int) -> dict[str, int]:
     return {"flash_attention_fwd": data * k1, "rmsnorm": data * k2}
 
 
+#: the small table steps (arch, layers, data, stages, seq, enc_len):
+#: gpt3 cut to 4 layers on 2 x 4; seamless cut to 2 encoder + 2 decoder
+#: layers on 1 x 2 with 384 encoder frames against 256 tokens (the
+#: cross-attention's sq != sk)
+SMALL_TABLES = [("paper-gpt3-large", 4, 2, 4, 256, 0),
+                ("seamless-m4t-large-v2", 4, 1, 2, 256, 384)]
+
+
 def phase_small_table():
-    """One table step (executor only) of paper-gpt3-large at full width cut
-    to 4 layers (``registry.cut_depth``), float32, seq 256, on a 2 x 4 mesh
-    of 1 microbatch per data rank, on the card (kernels) against the CPU
-    (plain versions) on identical weights (made on the CPU, seed 3): the
-    loss and every all-gathered grad shard within TOL_MM of its own max."""
+    """One table step (executor only) per SMALL_TABLES entry, at full
+    width cut to its layers (``registry.cut_depth``), float32, 1
+    microbatch per data rank, on the card (kernels) against the CPU (plain
+    versions) on identical weights (made on the CPU, seed 3): the loss and
+    every all-gathered grad shard within TOL_MM of its own max."""
+    for case in SMALL_TABLES:
+        small_table_step(*case)
+
+
+def small_table_step(arch, layers, data, stages, seq, enc_len):
     import copy
     import dataclasses
 
@@ -1113,11 +1239,14 @@ def phase_small_table():
     from repro_torch.models.convert import zero1_state_to_reference
     from repro_torch.pipeline.executor import shard_batch
 
-    print("small table step (2 x 4 mesh), card (kernels) vs CPU (plain), "
-          "float32:")
-    cfg = dataclasses.replace(registry.cut_depth("paper-gpt3-large", 4),
+    cfg = dataclasses.replace(registry.cut_depth(arch, layers),
                               dtype=torch.float32)
+    print(f"small table step {arch} {cfg.pattern} ({data} x {stages} mesh, "
+          f"seq {seq}" + (f", {enc_len} encoder frames" if enc_len else "")
+          + "), card (kernels) vs CPU (plain), float32:")
     f32 = {"io_grad_dtype": torch.float32, "flat_dtype": torch.float32}
+    if enc_len:
+        f32["enc_len"] = enc_len
     init = {}
 
     def init_params(model, mesh, device):
@@ -1134,12 +1263,13 @@ def phase_small_table():
     for dev in ("cpu", "cuda"):
         t0 = time.perf_counter()
         t = train.build_trainer(
-            "paper-gpt3-large", data=2, stages=4, layers=None, mb_rows=1,
-            microbatches=1, seq=256, schedule="1f1b", device=dev, cfg=cfg,
+            arch, data=data, stages=stages, layers=None, mb_rows=1,
+            microbatches=1, seq=seq, schedule="1f1b", device=dev, cfg=cfg,
             init_params=init_params, exec_options=f32)
         mesh = t["mesh"]
-        batch = train._device_batch(synth_batch(cfg, 2, 256, seed=5,
-                                                step=0), dev)
+        batch = train._device_batch(synth_batch(cfg, data, seq, seed=5,
+                                                step=0, enc_len=enc_len),
+                                    dev)
         shards = shard_batch(mesh, batch, t["batch_specs"])
         res = mesh.run(t["exec_fn"], [
             (t["stage_params"][r], t["io_params"][r], shards[r])
@@ -1169,52 +1299,72 @@ def phase_small_table():
     torch.cuda.empty_cache()
 
 
-def phase_table_path(actor_runs):
-    """The table runtime's main path through ``repro_torch.launch.train
-    --runtime table`` (TABLE_ARGS + TABLE_RUNS): paper-gpt3-large at full
-    width through K1 and K2, four schedules on a 1 x 4 mesh and 1f1b on a
-    2 x 4 mesh.  The launch counts are zeroed just before each run and read
-    just after, and must be what ``table_launches`` counts; each run's
-    step-0 loss must be the actor bf run's (``actor_runs``: same weights,
-    same batch) within TOL_TABLE_LOSS; the two 1f1b runs must give the same
-    bits; after the 2 x 4 run the two data replicas' parameters must be
-    bitwise equal."""
+def table_run(label, name, argv):
+    """One ``--runtime table`` run, ``train.main(argv)``, its launch counts
+    zeroed just before and read just after: finite losses and gnorms, and
+    K1 and K2 launched exactly as ``table_launches`` counts.  Returns
+    (run, counts, peak bytes); ``run.trainer`` is kept for the caller's own
+    checks."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
+    print(f"main path {label} ({name}): python -m repro_torch.launch.train "
+          + " ".join(argv))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = train.main(argv)
+    counts = ops.launch_counts()
+    mem = torch.cuda.max_memory_allocated()
+    t = run.trainer
+    steps = len(run.losses)
+    want = {k: steps * v for k, v in table_launches(
+        t["model"], t["table"], t["mesh"].shape["data"]).items()}
+    tokens = t["batch_size"] * t["seq"]
+    print(f"  losses {run.losses}  gnorms {run.gnorms}  step seconds "
+          f"{run.step_seconds}  launches {counts} (from the code "
+          f"{want})  peak memory {mem / 2**30:.2f} GiB")
+    for i, sec in enumerate(run.step_seconds):
+        print(f"  step {i}: {sec:.3f} s  {tokens / sec:,.0f} tokens/s")
+    print("  card after the run (SM clock, max SM clock, power, "
+          "temperature): " + card("clocks.sm,clocks.max.sm,"
+                                  "power.draw,temperature.gpu"))
+    if not all(math.isfinite(x) for x in run.losses + run.gnorms):
+        raise AssertionError(f"the {label} {name} run gave losses "
+                             f"{run.losses}, gnorms {run.gnorms}")
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"the {label} {name} run launched {counts}, "
+                             f"the code counts {want}")
+    return run, counts, mem
+
+
+def same_runs(label, a, b) -> None:
+    """Two runs of one command: the same loss and gnorm bits."""
+    if (a.losses, a.gnorms) != (b.losses, b.gnorms):
+        raise AssertionError(f"two {label} runs differ: {a.losses} "
+                             f"{a.gnorms} vs {b.losses} {b.gnorms}")
+    print(f"  two {label} runs: the same bits over {len(b.losses)} steps "
+          f"(losses {b.losses}, gnorms {b.gnorms})")
+
+
+def phase_table_path(actor_runs):
+    """The table runtime's main path through ``repro_torch.launch.train
+    --runtime table`` (TABLE_ARGS + TABLE_RUNS): paper-gpt3-large at full
+    width through K1 and K2, four schedules on a 1 x 4 mesh and 1f1b on a
+    2 x 4 mesh, each checked by ``table_run``; each run's step-0 loss must
+    be the actor bf run's (``actor_runs``: same weights, same batch) within
+    TOL_TABLE_LOSS; the two 1f1b runs must give the same bits; after the 2
+    x 4 run the two data replicas' parameters must be bitwise equal."""
+    import torch
+
     runs = {}
     l_actor = actor_runs["paper-gpt3-large", "bf"][0].losses[0]
     for name, extra in TABLE_RUNS:
-        argv = TABLE_ARGS + extra
-        print(f"main path paper-gpt3-large ({name}): python -m "
-              f"repro_torch.launch.train " + " ".join(argv))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        run = train.main(argv)
-        counts = ops.launch_counts()
-        mem = torch.cuda.max_memory_allocated()
+        run, counts, mem = table_run("paper-gpt3-large", name,
+                                     TABLE_ARGS + extra)
         t = run.trainer
-        steps = len(run.losses)
-        want = {k: steps * v for k, v in table_launches(
-            t["model"], t["table"], t["mesh"].shape["data"]).items()}
-        tokens = t["batch_size"] * t["seq"]
-        print(f"  losses {run.losses}  gnorms {run.gnorms}  step seconds "
-              f"{run.step_seconds}  launches {counts} (from the code "
-              f"{want})  peak memory {mem / 2**30:.2f} GiB")
-        for i, sec in enumerate(run.step_seconds):
-            print(f"  step {i}: {sec:.3f} s  {tokens / sec:,.0f} tokens/s")
-        print("  card after the run (SM clock, max SM clock, power, "
-              "temperature): " + card("clocks.sm,clocks.max.sm,"
-                                      "power.draw,temperature.gpu"))
-        if not all(math.isfinite(x) for x in run.losses + run.gnorms):
-            raise AssertionError(f"the {name} run gave losses {run.losses}, "
-                                 f"gnorms {run.gnorms}")
-        if any(counts[k] != v for k, v in want.items()):
-            raise AssertionError(f"the {name} run launched {counts}, the "
-                                 f"code counts {want}")
         l0 = run.losses[0]
         if abs(l0 - l_actor) > TOL_TABLE_LOSS * abs(l_actor):
             raise AssertionError(f"{name} step-0 loss {l0} vs actor bf "
@@ -1231,17 +1381,53 @@ def phase_table_path(actor_runs):
                         raise AssertionError(f"rank {r} and its replica "
                                              f"{twin} hold other params")
             print(f"  the two data replicas' parameters are bitwise equal "
-                  f"after {steps} steps")
+                  f"after {len(run.losses)} steps")
         run.trainer = None
         del t
         runs["paper-gpt3-large", name] = (run, counts, mem)
         torch.cuda.empty_cache()
-    a = runs["paper-gpt3-large", "table 1f1b"][0].losses
-    b = runs["paper-gpt3-large", "table 1f1b again"][0].losses
-    if a[:len(b)] != b:
-        raise AssertionError(f"two 1f1b runs differ: {a} vs {b}")
-    print(f"  two table 1f1b runs: the same bits over {len(b)} steps "
-          f"({b})")
+    same_runs("table 1f1b", runs["paper-gpt3-large", "table 1f1b"][0],
+              runs["paper-gpt3-large", "table 1f1b again"][0])
+    return runs
+
+
+#: the enc-dec table path (phase_enc_dec_table_path):
+#: seamless-m4t-large-v2 at full width and depth (24 + 24 layers), 4
+#: stages on a 1 x 4 mesh, 8 microbatches of 1 x 2048 decoder tokens and
+#: 2048 encoder frames (16,384 decoder tokens a step), bf16, 1f1b, twice.
+#: Every rank holds its own io copy (2 x 262e6 parameters) with its whole
+#: ZeRO-1 state at dp 1, and the four ranks' AdamW update of those leaves
+#: sets the peak: it fits one 80 GB card with ``optim/adamw.py``'s
+#: operation-by-operation update (PERF.md section 4)
+ENC_DEC_TABLE_ARGS = ["--runtime", "table", "--arch",
+                      "seamless-m4t-large-v2", "--full-size", "--devices",
+                      "4", "--stages", "4", "--microbatches", "8",
+                      "--mb-rows", "1", "--seq", "2048", "--schedule",
+                      "1f1b", "--steps", "2", "--device", "cuda"]
+ENC_DEC_TABLE_RUNS = ("table 1f1b", "table 1f1b again")
+
+
+def phase_enc_dec_table_path():
+    """seamless-m4t-large-v2 through ``--runtime table`` at full width and
+    depth (ENC_DEC_TABLE_ARGS): K1 causal in the decoder's self-attention
+    and non-causal in the encoder and the cross-attention (sq 2048 tokens
+    against sk 2048 frames), K2; each run checked by ``table_run``, and the
+    two runs give the same bits."""
+    import gc
+
+    import torch
+
+    gc.collect()  # the earlier table runs' ranks and state
+    torch.cuda.empty_cache()
+    arch = "seamless-m4t-large-v2"
+    runs = {}
+    for name in ENC_DEC_TABLE_RUNS:
+        run, counts, mem = table_run(arch, name, ENC_DEC_TABLE_ARGS)
+        run.trainer = None
+        runs[arch, name] = (run, counts, mem)
+        torch.cuda.empty_cache()
+    same_runs(f"{arch} table 1f1b", *(runs[arch, n][0]
+                                      for n in ENC_DEC_TABLE_RUNS))
     return runs
 
 
@@ -1650,6 +1836,7 @@ def main(argv=None) -> int:
     runs = phase_main_path()
     torch.cuda.empty_cache()
     runs.update(phase_table_path(runs))
+    runs.update(phase_enc_dec_table_path())
     runs.update(phase_runtime_flags())
     runs.update(phase_multimodal_path())
     runs.update(phase_serve_path())

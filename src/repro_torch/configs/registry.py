@@ -41,12 +41,16 @@ def cut_depth(name: str, num_layers: int) -> ArchConfig:
     """The full-width config of ``name`` with its first ``num_layers``
     layers (its layer pattern cut to them): a model one card holds where
     the full depth does not (the MoE configs with their optimizer state,
-    grok even for serving)."""
+    grok even for serving).  An enc-dec config is cut symmetrically: half
+    the layers encoder, half decoder, as ``reduced_config`` does."""
     cfg = get_arch(name)
     pattern = (None if cfg.layer_pattern is None
                else cfg.layer_pattern[:num_layers])
+    upd = {}
+    if cfg.encoder_layers:
+        upd["encoder_layers"] = num_layers // 2
     return dataclasses.replace(cfg, num_layers=num_layers,
-                               layer_pattern=pattern)
+                               layer_pattern=pattern, **upd)
 
 
 def reduced_config(name: str, num_layers: int | None = None) -> ArchConfig:

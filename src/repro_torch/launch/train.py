@@ -48,7 +48,10 @@ each holds its stage's parameters, its own io parameters and its ZeRO-1
 state, so memory grows with every data replica.  The port's ``--runtime``
 default stays ``actor``; the reference's is ``table``.  The telemetry
 flags instrument the actor runtime and stop under ``table``, as the
-reference's do; the other actor-only flags stop too.
+reference's do; the other actor-only flags stop too.  The enc-dec config
+(seamless-m4t-large-v2) trains under ``table`` only, with ``--seq``
+encoder frames per row after its ``--seq`` decoder tokens; ``actor``
+stops on it.
 
 Runs on the GPU unless ``--device cpu`` is given; without CUDA it raises.
 """
@@ -271,6 +274,11 @@ def train_actor(args, *, cfg=None, init_params=None,
     if cfg is None:
         cfg = (registry.reduced_config(args.arch, num_layers=args.layers)
                if not args.full_size else registry.get_arch(args.arch))
+    if cfg.encoder_layers:
+        raise SystemExit(
+            f"--runtime actor has no enc-dec path ({args.arch}: the "
+            f"reference's actor stage callables give its layers no "
+            f"dec_len); train it with --runtime table")
     model = build(cfg, num_stages=args.stages)
     if init_params is None:
         stage_params = [model.init_stage_params(s, seed=0, device=device)
@@ -511,10 +519,12 @@ def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
     ``init_params(model, mesh, device) -> (stage_params, io_params)``
     (per-rank lists) replaces the seeded init; ``exec_options`` replaces
     :class:`ExecOptions` fields (the float32 checks set ``io_grad_dtype``
-    and ``flat_dtype``).  ``train_step(batch, step)``
-    shards a global ``[data * microbatches * mb_rows, seq]`` batch over the
-    data axis, runs the executor and the optimizer on every rank (one
-    ``mesh.run``) and returns rank 0's metrics and stats.
+    and ``flat_dtype``; an enc-dec config takes ``enc_len = seq`` encoder
+    frames unless it sets ``enc_len``).  ``train_step(batch, step)``
+    shards a global ``[data * microbatches * mb_rows, seq]`` batch (and,
+    enc-dec, its ``[..., enc_len, d]`` frames) over the data axis, runs the
+    executor and the optimizer on every rank (one ``mesh.run``) and
+    returns rank 0's metrics and stats.
     """
     device = resolve_device(str(device))
     if cfg is None:
@@ -539,8 +549,12 @@ def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
                         split_backward=(schedule == "zb"))
     table = schedules.BUILDERS[schedule](spec)
     global_tokens = data * microbatches * mb_rows * seq
-    opts = ExecOptions(mb_rows=mb_rows, seq_len=seq,
-                       loss_scale=1.0 / global_tokens, **(exec_options or {}))
+    # an enc-dec config's encoder frames: ``seq`` per row, the length that
+    # ``synth_batch`` makes (the reference's launcher passes none)
+    opts = ExecOptions(**{
+        "mb_rows": mb_rows, "seq_len": seq,
+        "enc_len": seq if cfg.encoder_layers else 0,
+        "loss_scale": 1.0 / global_tokens, **(exec_options or {})})
     exec_fn, batch_specs = make_train_fn(model, table, mesh, opts, partition)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=20, total_steps=total_steps)
     opt_init, opt_update = make_optimizer(model, mesh, partition, opt_cfg)
@@ -637,7 +651,8 @@ def train_table(args, *, cfg=None, step_hook=None) -> TrainRun:
 
     def make(step):
         return synth_batch(t["cfg"], t["batch_size"], t["seq"],
-                           seed=args.seed, step=step)
+                           seed=args.seed, step=step,
+                           enc_len=t["opts"].enc_len)
 
     it = PrefetchIterator(make, start_step=start_step)
     try:

@@ -13,13 +13,13 @@ attention kinds (``attn``, ``attn_local``, ``attn_global``), the MoE
 families' ``moe`` and ``dense`` layers (attention, then routed experts or
 a dense FFN), Mamba-2 layers (``mamba``) with zamba2's shared attention
 block (``io.shared_blk``, applied before every ``shared_attn_period``-th
-layer), and xLSTM's ``mlstm`` and ``slstm`` blocks; the enc-dec kinds
-(``enc``, ``dec``) at decode only (``stage_decode``): the reference runs
-their forward only in its SPMD executor, whose port (``pipeline/executor.py``)
-runs the decoder families and leaves the enc-dec forward to a later slice
-(ROADMAP.md queue 1, item 18b); the MoE layouts over more than one data
-rank (``moe_layout`` ``ep``/``tp``; one rank computes them as ``none``)
-move with item 18a.
+layer), xLSTM's ``mlstm`` and ``slstm`` blocks, and the enc-dec kinds: an
+activation is ``concat(dec, enc)`` along the sequence, split at
+``aux["dec_len"]``; ``enc`` runs a non-causal decoder layer over the
+encoder frames, ``dec`` causal self-attention, cross-attention against
+the frames (non-causal, no RoPE) and the FFN over the decoder tokens.  The
+MoE layouts over more than one data rank (``moe_layout`` ``ep``/``tp``; one
+rank computes them as ``none``) move with ROADMAP.md queue 1, item 18a.
 
 Decode caches are trees of nested dicts, one per stage, each leaf stacked
 ``[l_max, batch, ...]`` (the reference's ``[S, l_max, ...]`` tree holds one
@@ -46,6 +46,7 @@ from repro_torch.models.layers import (
     FFN,
     Attention,
     DecoderLayer,
+    arange_positions,
     attention_block,
     decode_attention_block,
     decoder_layer,
@@ -221,13 +222,34 @@ class ArchModel:
                 return x + self._moe_ffn(slot, kind, h, aux)
 
             return moe_fn
-        if kind in ("enc", "dec"):
-            raise NotImplementedError(
-                f"the {kind!r} forward is not in the port: the reference "
-                f"runs the enc-dec forward only in its SPMD executor "
-                f"(pipeline/executor.py), whose port runs it in a later "
-                f"slice (ROADMAP.md queue 1, item 18b); its decode "
-                f"(stage_decode) is ported")
+        if kind == "enc":
+
+            def enc_fn(slot: LayerSlot, io, x, aux):
+                # x = concat(dec, enc): the encoder transforms the enc part
+                dec_len = aux["dec_len"]
+                enc = x[:, dec_len:]
+                pos = arange_positions(enc)
+                enc = decoder_layer(slot.blk, enc, pos, cfg, causal=False)
+                return torch.cat([x[:, :dec_len], enc], dim=1)
+
+            return enc_fn
+        if kind == "dec":
+
+            def dec_fn(slot: LayerSlot, io, x, aux):
+                dec_len = aux["dec_len"]
+                dec, enc = x[:, :dec_len], x[:, dec_len:]
+                pos = arange_positions(dec)
+                h = rmsnorm(dec, slot.blk.ln1, cfg.norm_eps)
+                dec = dec + attention_block(slot.blk.attn, h, pos, cfg)
+                h = rmsnorm(dec, slot.cross_ln, cfg.norm_eps)
+                dec = dec + attention_block(slot.cross, h, pos, cfg,
+                                            causal=False, kv_src=enc,
+                                            rope=False)
+                h = rmsnorm(dec, slot.blk.ln2, cfg.norm_eps)
+                dec = dec + ffn_block(slot.blk.ffn, h, cfg.act)
+                return torch.cat([dec, enc], dim=1)
+
+            return dec_fn
         if kind not in ATTN_KINDS:
             raise ValueError(kind)
         window = self._window(kind)

@@ -2,7 +2,8 @@
 
 Port of ``repro.models.layers``: pre-norm decoder layer = RMSNorm (kernel
 K2) -> RoPE (or qwen2-vl's 3-axis M-RoPE) -> GQA attention (kernel K1) ->
-RMSNorm -> FFN, and its decode
+RMSNorm -> FFN; the enc-dec decoder's cross-attention (``attention_block``
+with ``kv_src``: K1 with ``sq != sk``, non-causal); and its decode
 half: one token against a KV cache (``decode_attention_block``,
 ``decoder_layer_decode``; the plain ``decode_attention``, as the reference's
 self-attention decode reaches no kernel).  Caches are updated in place
@@ -52,6 +53,12 @@ def rmsnorm(x, scale, eps: float = 1e-5):
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
+def arange_positions(x):
+    """Positions ``arange(s)`` for every row of x [b, s, ...]."""
+    return torch.arange(x.shape[1], device=x.device)[None].expand(
+        x.shape[:2])
+
+
 def rope_freqs(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
@@ -116,31 +123,43 @@ class Attention(nn.Module):
             self.bv = zeros_param((nkv * hd,), cfg.dtype, device)
 
 
-def attention_qkv(p: Attention, x, cfg: ArchConfig):
+def attention_qkv(p: Attention, x, cfg: ArchConfig, kv_src=None):
+    """q from ``x`` [b, s, d]; k and v from ``kv_src`` [b, sk, d] (``x``
+    itself when None: self-attention).  Biases where the weights have
+    them (cross-attention has none)."""
+    kv_src = x if kv_src is None else kv_src
     b, s, _ = x.shape
+    sk = kv_src.shape[1]
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
-    if cfg.qkv_bias:
+    q, k, v = x @ p.wq, kv_src @ p.wk, kv_src @ p.wv
+    if hasattr(p, "bq"):
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    return (q.reshape(b, s, nq, hd), k.reshape(b, s, nkv, hd),
-            v.reshape(b, s, nkv, hd))
+    return (q.reshape(b, s, nq, hd), k.reshape(b, sk, nkv, hd),
+            v.reshape(b, sk, nkv, hd))
 
 
 def attention_block(p: Attention, x, positions, cfg: ArchConfig, *,
-                    causal: bool = True, window: int = 0, mrope_pos=None):
-    """Self-attention sub-block; the pre-norm residual is the caller's.
+                    causal: bool = True, window: int = 0, mrope_pos=None,
+                    kv_src=None, rope: bool = True):
+    """Self- (or cross-) attention sub-block; the pre-norm residual is the
+    caller's.
 
-    As in the reference, an M-RoPE config rotates by its 3-axis positions
+    Cross-attention (``kv_src`` [b, sk, d], the encoder's output) takes its
+    keys and values from ``kv_src``; with ``rope`` they rotate by
+    ``arange(sk)`` (the enc-dec decoder passes ``rope=False``).  As in the
+    reference, an M-RoPE config rotates by its 3-axis positions
     ``mrope_pos`` [3, b, s] when they are given, and by plain RoPE
     otherwise (the multimodal DAG's LM layers give none).
     """
-    q, k, v = attention_qkv(p, x, cfg)
-    if cfg.mrope and mrope_pos is not None:
+    q, k, v = attention_qkv(p, x, cfg, kv_src)
+    if rope and cfg.mrope and mrope_pos is not None:
         q = apply_mrope(q, mrope_pos, cfg.rope_theta)
         k = apply_mrope(k, mrope_pos, cfg.rope_theta)
-    else:
+    elif rope:
+        kv_positions = (positions if kv_src is None
+                        else arange_positions(kv_src))
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
     o = ops.flash_attention(q, k, v, positions, causal=causal, window=window)
     b, s = x.shape[:2]
     return o.reshape(b, s, -1) @ p.wo

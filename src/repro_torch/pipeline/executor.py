@@ -18,8 +18,12 @@ host integer.
 Backward is remat-based, on the actor runtime's per-stage callables
 (``pipeline/stagefn.py``): B re-runs the stage forward under autograd of a
 scalarized objective (CE at the last stage, <y, g_in> elsewhere), so no
-activation stack is kept beyond each microbatch's stage input.  The enc-dec
-forward is not in the port yet: an ``encoder_layers`` config raises.
+activation stack is kept beyond each microbatch's stage input.  An enc-dec
+config (``encoder_layers``) carries ``ExecOptions.enc_len`` encoder frames
+after the decoder tokens of every row: buffers and messages are
+``seq_len + enc_len`` long (the reference's ``_eff_seq``), stage 0 appends
+the batch's ``enc_embeds`` to the token embeddings, and the loss reads the
+decoder positions.
 """
 from __future__ import annotations
 
@@ -73,10 +77,6 @@ def make_train_fn(model: ArchModel, table: ScheduleTable, mesh,
     same on every rank.
     """
     cfg = model.cfg
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            "the enc-dec forward (encoder_layers) on the table executor "
-            "is the next slice of the port (ROADMAP.md queue 1, item 18b)")
     S = model.num_stages
     if mesh.shape["model"] != S:
         raise ValueError(f"{S} stages on a model axis of "
@@ -99,7 +99,8 @@ def make_train_fn(model: ArchModel, table: ScheduleTable, mesh,
     fns = StageFns(model, StageFnOptions(
         mb_rows=mb_rows, seq_len=seq, ce_chunk=opts.ce_chunk,
         loss_scale=opts.loss_scale, data_size=mesh.shape["data"],
-        moe_layout=model.moe_layout))
+        moe_layout=model.moe_layout, enc_len=opts.enc_len))
+    eff_seq = fns.eff_seq
     flags = partition.stage_data_sharded
 
     def fn(stage_params, io, batch):
@@ -113,7 +114,8 @@ def make_train_fn(model: ArchModel, table: ScheduleTable, mesh,
         weight_grad = fns.weight_grad(stage)
 
         def zeros():
-            return torch.zeros((mb_rows, seq, d), dtype=dt, device=device)
+            return torch.zeros((mb_rows, eff_seq, d), dtype=dt,
+                               device=device)
 
         act_buf = [zeros() for _ in range(K_act)]
         grad_buf = [zeros() for _ in range(K_grad)]

@@ -37,6 +37,7 @@ class StageFnOptions:
     loss_scale: float = 1.0  # applied to the backward seed
     data_size: int = 1       # the mesh's data axis (the MoE layouts')
     moe_layout: str = "none"  # none | ep | tp (one device: none)
+    enc_len: int = 0         # encoder frames per row (enc-dec archs)
 
 
 def default_ce_chunk(cfg, requested: int = 0) -> int:
@@ -93,21 +94,39 @@ class StageFns:
     decomposition: ``backward_dx(s)(...) -> dx`` (the B task) and
     ``weight_grad(s)(...) -> (d_stage, d_io)`` (the deferrable W task),
     both over the same objective as the fused backward.
+
+    An enc-dec config (``encoder_layers``) takes ``opts.enc_len`` encoder
+    frames per row, as the reference's table executor does: stage 0
+    embeds the tokens and appends the frames (``bm["enc_embeds"]``), every
+    activation is ``seq_len + enc_len`` long, ``aux["dec_len"]`` splits it,
+    and the loss reads the first ``seq_len`` positions.  (The reference's
+    actor callables give no ``dec_len``; the port's actor launcher stops
+    on an enc-dec config, and only the table executor passes ``enc_len``.)
     """
 
     def __init__(self, model: ArchModel, opts: StageFnOptions):
         self.model = model
         self.opts = opts
         self.ce_chunk = default_ce_chunk(model.cfg, opts.ce_chunk)
+        self.enc_dec = bool(model.cfg.encoder_layers)
+        if self.enc_dec and opts.enc_len <= 0:
+            raise ValueError(
+                f"{model.cfg.name} is an enc-dec config: its stage "
+                f"callables need enc_len > 0 (encoder frames per row)")
+        #: the stage activation's length: the decoder tokens, then (enc-dec
+        #: archs) the encoder frames (the reference executor's ``_eff_seq``)
+        self.eff_seq = opts.seq_len + (opts.enc_len if self.enc_dec else 0)
 
     # ---- helpers -------------------------------------------------------
     def _aux(self, bm: dict) -> dict:
-        seq = self.opts.seq_len
+        seq = self.eff_seq
         device = bm["labels"].device
         pos = torch.arange(seq, dtype=torch.int32, device=device)
         a = {"positions": pos[None].expand(self.opts.mb_rows, seq),
              "data_size": self.opts.data_size,
              "moe_layout": self.opts.moe_layout}
+        if self.enc_dec:
+            a["dec_len"] = self.opts.seq_len
         if "mrope" in bm:
             a["mrope"] = bm["mrope"]
         return a
@@ -115,8 +134,18 @@ class StageFns:
     def _embed(self, io, bm: dict):
         cfg = self.model.cfg
         if cfg.embed_input:
-            return bm["embeds"].to(cfg.dtype)
-        return io.embed[bm["tokens"]]
+            x = bm["embeds"].to(cfg.dtype)
+        else:
+            x = io.embed[bm["tokens"]]
+        if self.enc_dec:
+            x = torch.cat([x, bm["enc_embeds"].to(cfg.dtype)], dim=1)
+        return x
+
+    def _loss(self, io, y, bm: dict):
+        """The CE sum over the decoder tokens of the last stage's output."""
+        if self.enc_dec:
+            y = y[:, :self.opts.seq_len]
+        return chunked_ce_sum(self.model, io, y, bm["labels"], self.ce_chunk)
 
     def _stage_out(self, stage: int, sp_s, io, x, bm):
         model = self.model
@@ -127,8 +156,7 @@ class StageFns:
     def _objective(self, stage: int, sp_s, io, x, g_in, bm):
         y = self._stage_out(stage, sp_s, io, x, bm)
         if stage == self.model.num_stages - 1:
-            return chunked_ce_sum(self.model, io, y, bm["labels"],
-                                  self.ce_chunk) * self.opts.loss_scale
+            return self._loss(io, y, bm) * self.opts.loss_scale
         return torch.sum(y.float() * g_in.float())
 
     def _grads(self, stage, sp_s, io, x, g_in, bm, *, want_x: bool,
@@ -152,10 +180,9 @@ class StageFns:
         def f(sp_s, io, x, bm):
             with torch.no_grad():
                 y = self._stage_out(stage, sp_s, io, x, bm)
-                loss = (chunked_ce_sum(self.model, io, y, bm["labels"],
-                                       self.ce_chunk)
-                        if last else torch.zeros((), dtype=torch.float32,
-                                                 device=y.device))
+                loss = (self._loss(io, y, bm) if last else
+                        torch.zeros((), dtype=torch.float32,
+                                    device=y.device))
             return y, loss
 
         return f

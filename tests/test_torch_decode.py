@@ -283,12 +283,21 @@ def test_cache_layout_matches_reference_and_rejects_mismatches():
 
 
 def test_enc_dec_forward_waits_for_the_spmd_executor():
+    """The enc-dec forward, which the SPMD (table) executor runs: over
+    ``concat(dec, enc)`` an ``enc`` stage changes only the frames after
+    ``aux["dec_len"]`` and a ``dec`` stage only the tokens before it."""
     cfg = registry.reduced_config("seamless-m4t-large-v2", 4)
     model = build(cfg, 2)
-    sp = model.init_stage_params(0, device="cpu")
-    io = model.init_io_params(device="cpu")
-    assert hasattr(sp.slots[0], "cross")  # the union: cross in every slot
-    with pytest.raises(NotImplementedError, match="item 18"):
-        model.stage_forward(sp, io, torch.zeros(1, 4, cfg.d_model),
-                            {"positions": torch.arange(4)[None]},
-                            model.rows(0))
+    io = model.init_io_params(seed=0, device="cpu")
+    x = torch.randn((1, 10, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3))
+    aux = {"positions": torch.arange(10)[None], "dec_len": 4}
+    for s, kept, changed in ((0, slice(0, 4), slice(4, 10)),
+                             (1, slice(4, 10), slice(0, 4))):
+        sp = model.init_stage_params(s, seed=0, device="cpu")
+        assert hasattr(sp.slots[0], "cross")  # the union: cross everywhere
+        with torch.no_grad():
+            y = model.stage_forward(sp, io, x, aux, model.rows(s))
+        assert y.shape == x.shape and torch.isfinite(y).all()
+        assert torch.equal(y[:, kept], x[:, kept])
+        assert not torch.equal(y[:, changed], x[:, changed])

@@ -28,7 +28,13 @@ weights (carried across with ``models.convert``) and the same batches:
   matches the reference's: params and master within 1e-4, m and v within
   one bf16 ulp of the leaf's max (the launcher runs at the bf16 defaults);
 * a checkpoint of the port's table loop has the reference's leaves and
-  shapes.
+  shapes;
+* the enc-dec forward: reduced seamless-m4t-large-v2 (2 encoder + 2
+  decoder layers, one per stage) on the same 2 x 4 mesh, seq 16 and
+  ``ExecOptions(enc_len=24)`` encoder frames (so the cross-attention has
+  sq != sk), float32, two steps under ``1f1b`` and ``zb``: loss, grad
+  shards, params after 2 steps and the 2-step update, at the float32
+  yardsticks above.
 """
 import json
 import os
@@ -73,6 +79,9 @@ TABLE_ARGS = ["--runtime", "table", "--arch", "paper-gpt3-large",
               str(LAYERS), "--microbatches", str(M), "--mb-rows", str(ROWS),
               "--seq", str(SEQ), "--steps", "4", "--schedule", "1f1b"]
 TOL = 1e-4
+#: the enc-dec case: reduced seamless with 4 layers (2 enc + 2 dec) and
+#: ENC_LEN encoder frames per row against SEQ decoder tokens
+ENC_DEC, ENC_DEC_LAYERS, ENC_LEN = "seamless-m4t-large-v2", 4, 24
 
 REFERENCE = r"""
 import contextlib, io as _io, json, os, sys
@@ -90,47 +99,54 @@ from repro.pipeline.sharding import partition_for
 
 out, S, DATA, M, ROWS, SEQ, LAYERS = sys.argv[1], *map(int, sys.argv[2:8])
 table_args = json.loads(sys.argv[8])
+enc_dec, enc_dec_layers, enc_len = json.loads(sys.argv[9])
 B = DATA * M * ROWS
-cfg = registry.reduced_config("paper-gpt3-large", num_layers=LAYERS)
-model = build(cfg, num_stages=S)
 mesh = make_mesh(DATA, S)
-key = jax.random.key(0)
-sp = model.init_stage_params(key)
-io = model.init_io_params(jax.random.fold_in(key, 1))
-part = partition_for(model, sp, io)
 ks = jax.tree_util.keystr
+opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=1000)
 
 def leaves(prefix, tree):
     return {prefix + ks(p): np.asarray(l.astype(jnp.float32))
             for p, l in jax.tree_util.tree_leaves_with_path(tree)}
 
-np.savez(os.path.join(out, "init.npz"), **leaves("sp", sp), **leaves("io", io))
-batches = [synth_batch(cfg, B, SEQ, seed=0, step=s) for s in range(2)]
-opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=1000)
-for mode in ("float32", "default"):
-    extra = (dict(io_grad_dtype=jnp.float32, flat_dtype=jnp.float32)
-             if mode == "float32" else {})
-    init_fn, update_fn = map(jax.jit, make_optimizer(model, mesh, part,
-                                                     opt_cfg))
-    for sched in ("1f1b", "zb"):
-        table = schedules.BUILDERS[sched](
-            PipelineSpec(S, M, split_backward=(sched == "zb")))
-        opts = ExecOptions(mb_rows=ROWS, seq_len=SEQ,
-                           loss_scale=1.0 / (B * SEQ), **extra)
-        fn = jax.jit(make_train_fn(model, table, mesh, opts, part)[0])
-        st, p_sp, p_io, arrays = init_fn(sp, io), sp, io, {}
-        for step in range(2):
-            metrics, gs, eg = fn(p_sp, p_io, batches[step])
-            arrays[f"loss{step}"] = np.asarray(metrics["loss"])
-            if step == 0:
-                arrays.update({"grad" + k: np.asarray(v.astype(jnp.float32))
-                               for k, v in gs.items()})
-            p_sp, p_io, st, stats = update_fn(p_sp, p_io, st, gs, eg,
-                                              jnp.asarray(step, jnp.int32))
-            arrays[f"gnorm{step}"] = np.asarray(stats["gnorm"])
-        arrays.update(leaves("sp", p_sp))
-        arrays.update(leaves("io", p_io))
-        np.savez(os.path.join(out, f"{mode}_{sched}.npz"), **arrays)
+def run(arch, layers, modes, tag, enc_len=0):
+    cfg = registry.reduced_config(arch, num_layers=layers)
+    model = build(cfg, num_stages=S)
+    key = jax.random.key(0)
+    sp = model.init_stage_params(key)
+    io = model.init_io_params(jax.random.fold_in(key, 1))
+    part = partition_for(model, sp, io)
+    np.savez(os.path.join(out, f"{tag}init.npz"), **leaves("sp", sp),
+             **leaves("io", io))
+    batches = [synth_batch(cfg, B, SEQ, seed=0, step=s, enc_len=enc_len)
+               for s in range(2)]
+    for mode in modes:
+        extra = (dict(io_grad_dtype=jnp.float32, flat_dtype=jnp.float32)
+                 if mode == "float32" else {})
+        init_fn, update_fn = map(jax.jit, make_optimizer(model, mesh, part,
+                                                         opt_cfg))
+        for sched in ("1f1b", "zb"):
+            table = schedules.BUILDERS[sched](
+                PipelineSpec(S, M, split_backward=(sched == "zb")))
+            opts = ExecOptions(mb_rows=ROWS, seq_len=SEQ, enc_len=enc_len,
+                               loss_scale=1.0 / (B * SEQ), **extra)
+            fn = jax.jit(make_train_fn(model, table, mesh, opts, part)[0])
+            st, p_sp, p_io, arrays = init_fn(sp, io), sp, io, {}
+            for step in range(2):
+                metrics, gs, eg = fn(p_sp, p_io, batches[step])
+                arrays[f"loss{step}"] = np.asarray(metrics["loss"])
+                if step == 0:
+                    arrays.update({"grad" + k: np.asarray(
+                        v.astype(jnp.float32)) for k, v in gs.items()})
+                p_sp, p_io, st, stats = update_fn(
+                    p_sp, p_io, st, gs, eg, jnp.asarray(step, jnp.int32))
+                arrays[f"gnorm{step}"] = np.asarray(stats["gnorm"])
+            arrays.update(leaves("sp", p_sp))
+            arrays.update(leaves("io", p_io))
+            np.savez(os.path.join(out, f"{tag}{mode}_{sched}.npz"), **arrays)
+
+run("paper-gpt3-large", LAYERS, ("float32", "default"), "")
+run(enc_dec, enc_dec_layers, ("float32",), "enc_dec_", enc_len)
 
 # the reference launcher's table loop, checkpointing at step 2
 sys.argv = ["train"] + table_args + ["--ckpt-dir", os.path.join(out, "ck"),
@@ -155,7 +171,8 @@ def reference(tmp_path_factory) -> Path:
     out = subprocess.run(
         [sys.executable, "-c", REFERENCE, str(d),
          *map(str, (S, DATA, M, ROWS, SEQ, LAYERS)),
-         json.dumps(TABLE_ARGS)],
+         json.dumps(TABLE_ARGS),
+         json.dumps([ENC_DEC, ENC_DEC_LAYERS, ENC_LEN])],
         env=env, capture_output=True, text=True, timeout=600, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     return d
@@ -178,13 +195,17 @@ def _tree(arrays, prefix: str) -> dict:
 _PORT: dict = {}
 
 
-def _port_run(reference: Path, mode: str, sched: str) -> dict:
+def _port_run(reference: Path, mode: str, sched: str,
+              enc_dec: bool = False) -> dict:
     """The port's two steps of ``mode``/``sched`` from the reference's
-    initial weights (cached per module)."""
-    if (mode, sched) in _PORT:
-        return _PORT[mode, sched]
-    init = np.load(reference / "init.npz")
-    cfg = registry.reduced_config("paper-gpt3-large", LAYERS)
+    initial weights (cached per module): reduced paper-gpt3-large, or with
+    ``enc_dec`` the reduced seamless with ENC_LEN encoder frames."""
+    if (mode, sched, enc_dec) in _PORT:
+        return _PORT[mode, sched, enc_dec]
+    tag, enc_len = ("enc_dec_", ENC_LEN) if enc_dec else ("", 0)
+    init = np.load(reference / f"{tag}init.npz")
+    cfg = (registry.reduced_config(ENC_DEC, ENC_DEC_LAYERS) if enc_dec
+           else registry.reduced_config("paper-gpt3-large", LAYERS))
     model = build(cfg, num_stages=S)
     mesh = make_mesh(DATA, S, device="cpu")
     sps, ios = rank_params_from_reference(model, mesh, _tree(init, "sp"),
@@ -195,16 +216,18 @@ def _port_run(reference: Path, mode: str, sched: str) -> dict:
     table = schedules.BUILDERS[sched](
         PipelineSpec(S, M, split_backward=(sched == "zb")))
     fn, specs = make_train_fn(model, table, mesh, ExecOptions(
-        mb_rows=ROWS, seq_len=SEQ, loss_scale=1.0 / (B * SEQ), **extra),
-        part)
+        mb_rows=ROWS, seq_len=SEQ, enc_len=enc_len,
+        loss_scale=1.0 / (B * SEQ), **extra), part)
     init_fn, update_fn = make_optimizer(
         model, mesh, part, AdamWConfig(lr=1e-3, warmup_steps=20,
                                        total_steps=1000))
     state = mesh.run(init_fn, list(zip(sps, ios)))
     res: dict = {"losses": [], "gnorms": []}
     for step in range(2):
-        batch = {k: torch.from_numpy(v).long() for k, v in
-                 synth_batch(cfg, B, SEQ, seed=0, step=step).items()}
+        batch = {k: torch.from_numpy(v) if k == "enc_embeds"
+                 else torch.from_numpy(v).long() for k, v in
+                 synth_batch(cfg, B, SEQ, seed=0, step=step,
+                             enc_len=enc_len).items()}
         shards = shard_batch(mesh, batch, specs)
         out = mesh.run(fn, [(sps[r], ios[r], shards[r])
                             for r in range(mesh.size)])
@@ -219,17 +242,17 @@ def _port_run(reference: Path, mode: str, sched: str) -> dict:
             for r in range(mesh.size)])
         res["gnorms"].append(float(stats[0]["gnorm"]))
     res["params"] = rank_params_to_reference(model, mesh, sps, ios)
-    _PORT[mode, sched] = res
+    _PORT[mode, sched, enc_dec] = res
     return res
 
 
 CASES = [(m, s) for m in MODES for s in SCHEDULES]
 
 
-@pytest.mark.parametrize("mode,sched", CASES)
-def test_loss_and_gnorm_match_reference(reference, mode, sched):
-    ref = np.load(reference / f"{mode}_{sched}.npz")
-    got = _port_run(reference, mode, sched)
+def _check_loss_and_gnorm(reference, mode, sched, enc_dec=False):
+    tag = "enc_dec_" if enc_dec else ""
+    ref = np.load(reference / f"{tag}{mode}_{sched}.npz")
+    got = _port_run(reference, mode, sched, enc_dec)
     for step in range(2):
         want = float(ref[f"loss{step}"])
         assert abs(got["losses"][step] - want) <= TOL * abs(want), step
@@ -237,15 +260,20 @@ def test_loss_and_gnorm_match_reference(reference, mode, sched):
         assert abs(got["gnorms"][step] - gn) <= TOL * gn, step
 
 
+@pytest.mark.parametrize("mode,sched", CASES)
+def test_loss_and_gnorm_match_reference(reference, mode, sched):
+    _check_loss_and_gnorm(reference, mode, sched)
+
+
 def _bf16_ulp(x: float) -> float:
     """One bfloat16 ulp at magnitude ``x`` (8 significand bits)."""
     return 2.0 ** (np.floor(np.log2(x)) - 7)
 
 
-@pytest.mark.parametrize("mode,sched", CASES)
-def test_grad_shards_match_reference(reference, mode, sched):
-    ref = np.load(reference / f"{mode}_{sched}.npz")
-    got = _port_run(reference, mode, sched)["grads"]
+def _check_grad_shards(reference, mode, sched, enc_dec=False):
+    tag = "enc_dec_" if enc_dec else ""
+    ref = np.load(reference / f"{tag}{mode}_{sched}.npz")
+    got = _port_run(reference, mode, sched, enc_dec)["grads"]
     want_keys = [k[4:] for k in ref.files if k.startswith("grad")]
     assert sorted(got) == sorted(want_keys)
     for k in want_keys:
@@ -257,16 +285,15 @@ def test_grad_shards_match_reference(reference, mode, sched):
 
 
 @pytest.mark.parametrize("mode,sched", CASES)
-def test_params_after_two_steps_match_reference(reference, mode, sched):
-    """The params within 1e-4, and the update itself within 1e-3 of its
-    norm: the update is about lr, so the 1e-4 bound alone would pass an
-    optimizer with half the learning rate.  The update is held in norm,
-    not element by element: where a gradient is rounding noise in both
-    packages (softmax's shift invariance leaves directions of wq and wk
-    with no true gradient), Adam scales the noise up to +-lr."""
-    ref = np.load(reference / f"{mode}_{sched}.npz")
-    init = np.load(reference / "init.npz")
-    sp, io = _port_run(reference, mode, sched)["params"]
+def test_grad_shards_match_reference(reference, mode, sched):
+    _check_grad_shards(reference, mode, sched)
+
+
+def _check_params_after_two_steps(reference, mode, sched, enc_dec=False):
+    tag = "enc_dec_" if enc_dec else ""
+    ref = np.load(reference / f"{tag}{mode}_{sched}.npz")
+    init = np.load(reference / f"{tag}init.npz")
+    sp, io = _port_run(reference, mode, sched, enc_dec)["params"]
     n = 0
     for prefix, tree in (("sp", sp), ("io", io)):
         for k, v in _leaves_with_path(tree):
@@ -278,6 +305,34 @@ def test_params_after_two_steps_match_reference(reference, mode, sched):
                     <= 1e-3 * np.linalg.norm(d_ref)), k
             n += 1
     assert n == sum(1 for k in ref.files if k.startswith(("sp", "io")))
+
+
+@pytest.mark.parametrize("mode,sched", CASES)
+def test_params_after_two_steps_match_reference(reference, mode, sched):
+    """The params within 1e-4, and the update itself within 1e-3 of its
+    norm: the update is about lr, so the 1e-4 bound alone would pass an
+    optimizer with half the learning rate.  The update is held in norm,
+    not element by element: where a gradient is rounding noise in both
+    packages (softmax's shift invariance leaves directions of wq and wk
+    with no true gradient), Adam scales the noise up to +-lr."""
+    _check_params_after_two_steps(reference, mode, sched)
+
+
+@pytest.mark.parametrize("sched", SCHEDULES)
+def test_enc_dec_loss_and_gnorm_match_reference(reference, sched):
+    _check_loss_and_gnorm(reference, "float32", sched, enc_dec=True)
+
+
+@pytest.mark.parametrize("sched", SCHEDULES)
+def test_enc_dec_grad_shards_match_reference(reference, sched):
+    _check_grad_shards(reference, "float32", sched, enc_dec=True)
+
+
+@pytest.mark.parametrize("sched", SCHEDULES)
+def test_enc_dec_params_after_two_steps_match_reference(reference, sched):
+    """As the gpt3 cases: params within 1e-4, the update within 1e-3 of
+    its norm in each leaf (the encoder's, the cross-attention's)."""
+    _check_params_after_two_steps(reference, "float32", sched, enc_dec=True)
 
 
 def _step_2_checkpoint(reference: Path, tmp_path: Path) -> Path:

@@ -1,5 +1,6 @@
-"""Port kernels K1 (flash attention), K2 (RMSNorm) and K3 (flash decode)
-against the reference.
+"""Port kernels K1 (flash attention; causal and, for the enc-dec encoder
+and cross-attention, non-causal with sq != sk), K2 (RMSNorm) and K3
+(flash decode) against the reference.
 
 On the CPU the port's wrappers run the kernels' plain PyTorch versions; the
 reference runs its Pallas kernels in interpret mode (and its XLA VJPs for
@@ -37,6 +38,17 @@ SHAPES = [
     (2, 160, 4, 4, 64, 64),
     (1, 96, 4, 2, 32, 0),
 ]
+#: non-causal K1 (the enc-dec encoder and cross-attention), (b, sq, sk, hq,
+#: hkv, hd): sq == sk, ragged and GQA; then sq != sk, keys ragged against
+#: the 256-key block of the plain backward (300, 517), more queries than
+#: keys, MQA
+NONCAUSAL_SHAPES = [
+    (1, 128, 128, 4, 4, 64),
+    (2, 200, 200, 8, 2, 64),
+    (2, 150, 300, 8, 2, 96),
+    (1, 96, 517, 4, 1, 32),
+    (1, 333, 280, 4, 4, 128),
+]
 #: tests/test_kernels.py decode shapes (b, S, hq, hkv, hd, length, window):
 #: ragged GQA, MQA hd 128 at full length, a window, the first token
 DECODE_SHAPES = [
@@ -58,11 +70,12 @@ def close(got: torch.Tensor, want, tol):
                                atol=tol, rtol=tol)
 
 
-def attn_inputs(b, sq, hq, hkv, hd, seed):
+def attn_inputs(b, sq, hq, hkv, hd, seed, sk=None):
     rng = np.random.default_rng(seed)
+    sk = sq if sk is None else sk
     return (rng.standard_normal((b, sq, hq, hd)).astype(np.float32),
-            rng.standard_normal((b, sq, hkv, hd)).astype(np.float32),
-            rng.standard_normal((b, sq, hkv, hd)).astype(np.float32))
+            rng.standard_normal((b, sk, hkv, hd)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, hd)).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +134,52 @@ def test_flash_attention_grad_matches_jax_grad(b, sq, hq, hkv, hd, window):
         close(g, w, TOL["float32"])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd", NONCAUSAL_SHAPES)
+def test_noncausal_attention_matches_pallas_interpret(b, sq, sk, hq, hkv, hd,
+                                                      dtype):
+    """``causal=False``, also with sq != sk: the plain forward (out and
+    lse) against the reference's K1 in interpret mode (it pads q and k
+    apart) and the lse of its streaming forward."""
+    qn, kn, vn = attn_inputs(b, sq, hq, hkv, hd, seed=sq + 5 * sk, sk=sk)
+    (qj, qt), (kj, kt), (vj, vt) = (both(a, dtype) for a in (qn, kn, vn))
+    pos = jnp.broadcast_to(jnp.arange(sq)[None], (b, sq))
+    want = jops.flash_attention(qj, kj, vj, pos, causal=False,
+                                backend="interpret")
+    got = ops.flash_attention(qt, kt, vt, causal=False)
+    assert got.shape == (b, sq, hq, hd) and got.dtype == qt.dtype
+    close(got, want, TOL[dtype])
+    _, lse_j = jlayers._blocked_attention_fwd_impl(qj, kj, vj, pos, False, 0,
+                                                   128)
+    qs = (qt * hd ** -0.5).to(qt.dtype).transpose(1, 2)
+    _, lse = fa.flash_attention_fwd(qs, kt.transpose(1, 2),
+                                    vt.transpose(1, 2), causal=False)
+    close(lse, np.asarray(lse_j).reshape(b, hq, sq), TOL[dtype])
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd", NONCAUSAL_SHAPES)
+def test_noncausal_attention_grad_matches_jax_grad(b, sq, sk, hq, hkv, hd):
+    """``flash_attention_bwd_plain`` with ``causal=False`` (every key block
+    unmasked but the ragged last) against ``jax.grad`` of the reference's
+    ``blocked_attention`` (its lse VJP, 256-key blocks)."""
+    qn, kn, vn = attn_inputs(b, sq, hq, hkv, hd, seed=sk + 3, sk=sk)
+    cot = np.random.default_rng(sk).standard_normal(
+        (b, sq, hq, hd)).astype(np.float32)
+    pos = jnp.broadcast_to(jnp.arange(sq)[None], (b, sq))
+
+    def f(q, k, v):
+        o = jlayers.blocked_attention(q, k, v, pos, False, 0, 256)
+        return jnp.sum(o * cot)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(qn, kn, vn)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (qn, kn, vn))
+    out = ops.flash_attention(q, k, v, causal=False)
+    got = torch.autograd.grad((out * torch.from_numpy(cot)).sum(), (q, k, v))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        close(g, w, TOL["float32"])
+
+
 # K1's tensor-core kernel (bf16): its tile plan and its arithmetic, mirrored
 # in Python.  These tests check the design as the source states it (the
 # tile constants below are read from the source), not the built binary:
@@ -134,6 +193,11 @@ K1_BLOCK_M_RULE = tuple(map(int, re.search(
     r"return HD <= (\d+) \? (\d+) : (\d+);", _K1_TC).groups()))
 #: the training shapes of the main paths: gpt3 (hd 96) and zamba2 (hd 64)
 TRAIN_SHAPES = [(1, 2048, 16, 16, 96, 0), (1, 2048, 32, 32, 64, 0)]
+#: seamless's non-causal training shapes (b, sq, sk, hq, hkv, hd): the
+#: encoder and the cross-attention at 2048 + 2048, and a cross-attention
+#: over fewer frames than tokens
+NONCAUSAL_TRAIN_SHAPES = [(1, 2048, 2048, 16, 16, 64),
+                          (1, 2048, 1536, 16, 16, 64)]
 
 
 def test_k1_plan_tests_cover_the_kernels_block_m():
@@ -211,7 +275,33 @@ def test_k1_tile_plan_covers_every_unmasked_pair_once(b, sq, hq, hkv, hd,
         assert work == sorted(work, reverse=True)
 
 
-def k1_bf16_emulation(q, k, v, window, block_m):
+@pytest.mark.parametrize("block_m", [64, 128])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd",
+                         NONCAUSAL_SHAPES + NONCAUSAL_TRAIN_SHAPES)
+def test_k1_noncausal_tile_plan_covers_every_pair_once(b, sq, sk, hq, hkv,
+                                                       hd, block_m):
+    """``causal=False``: every query tile visits every key tile once
+    (``n_end = sk``); no warp is idle; a warp masks only on the ragged last
+    key tile, where the mask keeps exactly the keys below sk."""
+    valid = k1_valid(sq, sk, 0, causal=False)
+    seen = np.zeros((sq, sk), np.int32)
+    plan = k1_plan(sq, sk, 0, block_m, causal=False)
+    assert len(plan) == -(-sq // block_m)
+    for m0, tiles in plan:
+        rows = slice(m0, min(sq, m0 + block_m))
+        assert tiles == list(range(0, sk, K1_BLOCK_N))
+        for n0 in tiles:
+            keys = slice(n0, min(sk, n0 + K1_BLOCK_N))
+            seen[rows, keys] += 1
+            for warp in range(4):
+                idle, edge = k1_warp_flags(m0, n0, sk, 0, block_m, warp,
+                                           causal=False)
+                assert not idle
+                assert edge == (n0 + K1_BLOCK_N > sk), (m0, n0, warp)
+    assert valid.all() and (seen == 1).all()
+
+
+def k1_bf16_emulation(q, k, v, window, block_m, causal=True):
     """The bf16 kernel's arithmetic on the CPU, block by block of its plan:
     S in float32 from the bf16 products, masked on edge tiles, running row
     max; p = exp(s - m) in float32, l summed from the unrounded p, P
@@ -219,12 +309,12 @@ def k1_bf16_emulation(q, k, v, window, block_m):
     log l.  q [b, hq, sq, hd] pre-scaled, k, v [b, hkv, sk, hd], bf16."""
     b, hq, sq, hd = q.shape
     g, sk = hq // k.shape[1], k.shape[2]
-    valid = torch.from_numpy(k1_valid(sq, sk, window))
+    valid = torch.from_numpy(k1_valid(sq, sk, window, causal))
     qf = q.float()
     kf, vf = (t.float().repeat_interleave(g, 1) for t in (k, v))
     out = torch.empty(q.shape, dtype=torch.bfloat16)
     lse = torch.empty((b, hq, sq))
-    for m0, tiles in k1_plan(sq, sk, window, block_m):
+    for m0, tiles in k1_plan(sq, sk, window, block_m, causal):
         r = slice(m0, min(sq, m0 + block_m))
         m = torch.full((b, hq, r.stop - m0, 1), -1e30)
         l = torch.zeros_like(m)
@@ -258,6 +348,23 @@ def test_k1_bf16_arithmetic_matches_pallas_interpret(b, sq, hq, hkv, hd,
     _, want_lse = fa.flash_attention_fwd_plain(qt, kt, vt, window=window)
     for block_m in (64, 128):
         out, lse = k1_bf16_emulation(qt, kt, vt, window, block_m)
+        close(out, want, TOL["bfloat16"])
+        close(lse, want_lse.numpy(), 1e-4)
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd", NONCAUSAL_SHAPES)
+def test_k1_bf16_noncausal_arithmetic_matches_pallas_interpret(b, sq, sk, hq,
+                                                               hkv, hd):
+    """The bf16 kernel's arithmetic over its non-causal plan (sq != sk,
+    ragged keys) against the Pallas kernel, for either BLOCK_M."""
+    qn, kn, vn = attn_inputs(b, sq, hq, hkv, hd, seed=sq * 3 + sk, sk=sk)
+    qn = qn * np.float32(hd ** -0.5)
+    (qj, qt), (kj, kt), (vj, vt) = (both(a.transpose(0, 2, 1, 3).copy(),
+                                         "bfloat16") for a in (qn, kn, vn))
+    want = jflash_fwd(qj, kj, vj, causal=False, interpret=True)
+    _, want_lse = fa.flash_attention_fwd_plain(qt, kt, vt, causal=False)
+    for block_m in (64, 128):
+        out, lse = k1_bf16_emulation(qt, kt, vt, 0, block_m, causal=False)
         close(out, want, TOL["bfloat16"])
         close(lse, want_lse.numpy(), 1e-4)
 
@@ -521,6 +628,23 @@ def test_kernels_match_plain_versions_on_card(dtype):
     assert ops.launch_counts() == {"flash_attention_fwd": 2 * len(shapes),
                                    "rmsnorm": 1, "flash_decode": 0,
                                    "ssd_scan": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_noncausal_k1_matches_plain_version_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode "
+                    "(chip_smoke.py runs them on the card)")
+    td = DTYPES[dtype][1]
+    for b, sq, sk, hq, hkv, hd in NONCAUSAL_SHAPES + NONCAUSAL_TRAIN_SHAPES:
+        qn, kn, vn = attn_inputs(b, sq, hq, hkv, hd, seed=2, sk=sk)
+        q, k, v = (torch.from_numpy(a).to("cuda", td).transpose(1, 2)
+                   for a in (qn, kn, vn))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+        want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=False)
+        close(out.cpu(), want.cpu().float().numpy(), TOL[dtype])
+        close(lse.cpu(), want_lse.cpu().numpy(), 1e-4)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ import torch
 from repro.configs import registry as jreg
 from repro.models.build import build as jbuild
 from repro.models import layers as jlayers
+from repro.models.common import keygen
 from repro_torch.configs import registry
 from repro_torch.models.build import build as tbuild
 from repro_torch.models import layers
@@ -176,7 +177,9 @@ def test_decoder_layer_matches_reference(act):
 
 def model_inputs(cfg, b, s, seed=2):
     """numpy (batch, aux) of a reduced config: tokens or, for an
-    ``embed_input`` arch, embeddings; M-RoPE streams for qwen2-vl."""
+    ``embed_input`` arch, embeddings; M-RoPE streams for qwen2-vl; for an
+    enc-dec arch ``dec_len = s // 2`` (a Python int), the rest of the
+    sequence the encoder's frames, as tests/test_archs.py gives it."""
     rng = np.random.default_rng(seed)
     if cfg.embed_input:
         batch = {"embeds": rng.standard_normal((b, s, cfg.d_model)).astype(
@@ -188,36 +191,45 @@ def model_inputs(cfg, b, s, seed=2):
                                         (b, s)).copy()}
     if cfg.mrope:
         aux["mrope"] = mrope_streams(b, s, seed)
+    if cfg.encoder_layers:
+        aux["dec_len"] = s // 2
     return batch, aux
 
 
 def torch_inputs(batch, aux):
     return ({k: torch.from_numpy(v).long() if k == "tokens"
              else torch.from_numpy(v) for k, v in batch.items()},
-            {k: torch.from_numpy(v) for k, v in aux.items()})
+            {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+             for k, v in aux.items()})
+
+
+def jax_inputs(batch, aux):
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+             for k, v in aux.items()})
 
 
 @pytest.mark.parametrize("arch", ["paper-gpt3-large", "deepseek-7b",
                                   "qwen1.5-32b", "granite-34b", "gemma3-4b",
                                   "zamba2-1.2b", "deepseek-moe-16b",
                                   "grok-1-314b", "xlstm-350m",
-                                  "qwen2-vl-2b"])
+                                  "qwen2-vl-2b", "seamless-m4t-large-v2"])
 def test_reference_forward_logits_match(arch):
     # zamba2: 5 Mamba layers on 2 stages (a disabled slot, shared-block
     # slots on both stages); seq 40 = two full chunks of 16 and a padded
     # one.  deepseek-moe: its dense first layer and MoE layers (shared
     # experts); grok: GEGLU experts; xlstm: the reduced 3:1 pattern;
-    # qwen2-vl: embeddings in, three distinct M-RoPE streams
+    # qwen2-vl: embeddings in, three distinct M-RoPE streams; seamless: 2
+    # enc + 2 dec layers over 8 decoder tokens and 8 encoder positions
     layers_n, s = (5, 40) if arch == "zamba2-1.2b" else (4, 16)
     model_j, sp, io = _reference_model(arch, stages=2, layers_n=layers_n)
     model_t = tbuild(reduced_configs(arch, layers_n)[1], 2)
     stages, io_t = params_from_reference(model_t, _np_tree(sp), _np_tree(io),
                                          "cpu")
     batch, aux = model_inputs(model_t.cfg, 2, s)
+    batch_j, aux_j = jax_inputs(batch, aux)
     want = model_j.reference_forward(
-        sp, io, jax.tree.map(jnp.asarray, batch),
-        {**jax.tree.map(jnp.asarray, aux), "data_size": 1,
-         "moe_layout": "none"})
+        sp, io, batch_j, {**aux_j, "data_size": 1, "moe_layout": "none"})
     with torch.no_grad():
         got = model_t.reference_forward(stages, io_t,
                                         *torch_inputs(batch, aux))
@@ -230,24 +242,28 @@ def test_reference_forward_logits_match(arch):
 def test_every_arch_forward_grad_step_and_decode(arch):
     """The port's counterpart of tests/test_archs.py on every registered
     arch (reduced, 6 layers on 4 stages, seeded weights): finite logits of
-    the right shape, finite gradients with some nonzero, and one decode
-    step against a cache on every stage.  seamless-m4t's enc-dec forward
-    runs only in the reference's SPMD executor (item 18): decode only."""
+    the right shape, finite gradients with some nonzero (seamless: its
+    encoder's and cross-attention's among them, ``dec_len`` 16 of 32), and
+    one decode step against a cache on every stage."""
     cfg = registry.reduced_config(arch, num_layers=6)
     model = tbuild(cfg, 4)
     sp = [model.init_stage_params(s, seed=1, device="cpu") for s in range(4)]
     io = model.init_io_params(seed=1, device="cpu")
-    if "enc" not in model.layer_types:
-        batch, aux = torch_inputs(*model_inputs(cfg, 2, 32))
-        logits = model.reference_forward(sp, io, batch, aux)
-        assert logits.shape == (2, 32, cfg.padded_vocab())
-        assert torch.isfinite(logits).all()
-        lse = torch.logsumexp(logits.float(), dim=-1)
-        params = [p for m in (*sp, io) for p in m.parameters()]
-        grads = torch.autograd.grad(lse.mean(), params, allow_unused=True)
-        grads = [g for g in grads if g is not None]
-        assert all(torch.isfinite(g).all() for g in grads)
-        assert any(float(g.abs().max()) > 0 for g in grads)
+    batch, aux = torch_inputs(*model_inputs(cfg, 2, 32))
+    logits = model.reference_forward(sp, io, batch, aux)
+    assert logits.shape == (2, 32, cfg.padded_vocab())
+    assert torch.isfinite(logits).all()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    named = [(n, p) for m in (*sp, io) for n, p in m.named_parameters()]
+    grads = torch.autograd.grad(lse.mean(), [p for _, p in named],
+                                allow_unused=True)
+    nonzero = {n for (n, _), g in zip(named, grads)
+               if g is not None and float(g.abs().max()) > 0}
+    assert all(torch.isfinite(g).all() for g in grads if g is not None)
+    assert nonzero
+    if cfg.encoder_layers:  # the encoder and the cross-attention train
+        assert any(n.endswith("cross.wk") for n in nonzero)
+        assert any(n.endswith("blk.attn.wq") for n in nonzero)
     x = torch.randn((2, 1, cfg.d_model),
                     generator=torch.Generator().manual_seed(5)) * 0.1
     with torch.inference_mode():
@@ -256,6 +272,47 @@ def test_every_arch_forward_grad_step_and_decode(arch):
             y, _ = model.stage_decode(sp[s], io, x, cache, 3, {},
                                       model.rows(s))
             assert y.shape == x.shape and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_cross_attention_block_matches_reference(rope):
+    """``attention_block`` with ``kv_src``: q from 12 decoder positions, k
+    and v from 20 encoder frames (sq != sk), non-causal; with ``rope`` the
+    keys rotate by ``arange(sk)``.  GQA 4/2, weights without biases."""
+    cfg_j = jreg.reduced_config("seamless-m4t-large-v2")
+    cfg_t = registry.reduced_config("seamless-m4t-large-v2")
+    cfg_j, cfg_t = (dataclasses.replace(c, num_kv_heads=2)
+                    for c in (cfg_j, cfg_t))
+    p = jlayers.init_attention(keygen(jax.random.key(4)), cfg_j, cross=True)
+    port = layers.Attention(cfg_t, None, "cpu", cross=True)
+    with torch.no_grad():
+        for name, t in port.named_parameters():
+            t.copy_(torch.from_numpy(np.array(p[name])))
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 12, cfg_t.d_model)).astype(np.float32)
+    enc = rng.standard_normal((2, 20, cfg_t.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(12, dtype=np.int32), (2, 12)).copy()
+    want = jlayers.attention_block(p, jnp.asarray(x), jnp.asarray(pos),
+                                   cfg_j, causal=False,
+                                   kv_src=jnp.asarray(enc), rope=rope)
+    got = layers.attention_block(port, torch.from_numpy(x),
+                                 torch.from_numpy(pos), cfg_t, causal=False,
+                                 kv_src=torch.from_numpy(enc), rope=rope)
+    assert got.shape == (2, 12, cfg_t.d_model)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_cut_depth_halves_an_enc_dec_config():
+    """``cut_depth`` of seamless keeps equal encoder and decoder halves (the
+    full config's 24 encoder layers would leave no decoder)."""
+    for n in (2, 8, 48):
+        cfg = registry.cut_depth("seamless-m4t-large-v2", n)
+        assert cfg.d_model == 1024 and cfg.num_layers == n
+        assert cfg.pattern == ("enc",) * (n // 2) + ("dec",) * (n // 2)
+    assert (registry.cut_depth("seamless-m4t-large-v2", 48)
+            == registry.get_arch("seamless-m4t-large-v2"))
+    assert registry.cut_depth("paper-gpt3-large", 4).encoder_layers == 0
 
 
 def test_params_from_reference_loads_every_leaf_by_path():

@@ -118,6 +118,37 @@ def test_adamw_update_matches_reference():
                                        atol=1e-7)
 
 
+def _adamw_expression(cfg, p, g, m, v, step, lr, scale=1.0):
+    """The reference's update as one expression (its temporaries)."""
+    f = np.float32
+    g = g.float() * scale
+    m = cfg.beta1 * m + (1 - cfg.beta1) * g
+    v = cfg.beta2 * v + (1 - cfg.beta2) * g * g
+    mh = m / float(f(1.0) - f(cfg.beta1) ** f(step + 1))
+    vh = v / float(f(1.0) - f(cfg.beta2) ** f(step + 1))
+    upd = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p
+    return p - lr * upd, m, v
+
+
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_is_the_expression_bit_for_bit(grad_dtype):
+    """The port's operation-by-operation update gives the expression's
+    bits and leaves its inputs untouched (a bf16 grad shard, a clip
+    scale, early and late steps)."""
+    gen = torch.Generator().manual_seed(1)
+    cfg = adamw.AdamWConfig()
+    for step, scale in ((0, 1.0), (7, 0.37), (500, 1.0)):
+        p, g = (torch.randn(4099, generator=gen) for _ in range(2))
+        m = torch.randn(4099, generator=gen) * 0.1
+        v = torch.rand(4099, generator=gen) * 0.01
+        args = (p, g.to(grad_dtype), m, v)
+        before = [a.clone() for a in args]
+        got = adamw._adamw_update(cfg, *args, step, 1e-3, scale)
+        want = _adamw_expression(cfg, *args, step, 1e-3, scale)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), step
+        assert all(torch.equal(a, b) for a, b in zip(args, before)), step
+
+
 def test_host_update_is_in_place_and_casts_back():
     upd = adamw.make_host_update(adamw.AdamWConfig(lr=1e-2, warmup_steps=1))
     p = torch.ones(8, dtype=torch.bfloat16)

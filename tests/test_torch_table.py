@@ -13,10 +13,13 @@ what still raises, and the launcher.
   the port's actor ``1f1b`` run on the same weights and global batch
   within 1e-4 (float32); the actor path is held against the reference per
   family elsewhere (tests/test_torch_train.py, test_torch_stagefn.py);
-* deepseek-moe runs at ``data == 1`` and raises at ``data > 1``; an
-  enc-dec config raises;
+  (and seamless-m4t-large-v2's enc-dec forward, whose actor callables
+  take the table's encoder frames);
+* the enc-dec config gives the same losses under every schedule too;
+* deepseek-moe runs at ``data == 1`` and raises at ``data > 1``;
 * ``main([... --runtime table ...])`` trains on the CPU, raises without
-  CUDA unless the CPU is asked for, and stops on the actor-only flags.
+  CUDA unless the CPU is asked for, and stops on the actor-only flags;
+  ``--runtime actor`` stops on the enc-dec config.
 """
 import dataclasses
 
@@ -66,8 +69,8 @@ def _trainer(schedule="1f1b", *, arch="paper-gpt3-large", layers=8, data=2,
 
 def _batch(t, step: int) -> dict:
     return train._device_batch(
-        synth_batch(t["cfg"], t["batch_size"], t["seq"], seed=0, step=step),
-        "cpu")
+        synth_batch(t["cfg"], t["batch_size"], t["seq"], seed=0, step=step,
+                    enc_len=t["opts"].enc_len), "cpu")
 
 
 def _steps(t, n: int = 2, each=None) -> list[float]:
@@ -79,13 +82,23 @@ def _steps(t, n: int = 2, each=None) -> list[float]:
     return losses
 
 
-def test_schedules_give_the_same_losses():
-    losses = {s: _steps(_trainer(s, exec_options=F32))
+def _assert_schedules_agree(**kw):
+    losses = {s: _steps(_trainer(s, exec_options=F32, **kw))
               for s in ("gpipe", "1f1b", "zb", "rrfp")}
     base = losses["1f1b"]
     for s, got in losses.items():
         for a, b in zip(got, base):
             assert abs(a - b) <= 1e-5 * abs(b), (s, got, base)
+
+
+def test_schedules_give_the_same_losses():
+    _assert_schedules_agree()
+
+
+def test_schedules_give_the_same_losses_enc_dec():
+    """seamless reduced to 4 + 4 layers on 2 x 4 (two encoder stages, two
+    decoder stages), 16 decoder tokens and 16 encoder frames a row."""
+    _assert_schedules_agree(arch="seamless-m4t-large-v2")
 
 
 def _params(t) -> list[list[torch.Tensor]]:
@@ -134,7 +147,8 @@ def _actor_grads(t, microbatches: int, mb_rows: int):
     io = t["io_params"][0]
     tokens = microbatches * mb_rows * seq
     fns = StageFns(model, StageFnOptions(mb_rows=mb_rows, seq_len=seq,
-                                         loss_scale=1.0 / tokens))
+                                         loss_scale=1.0 / tokens,
+                                         enc_len=t["opts"].enc_len))
     batch = _batch(t, 0)
     programs = [ActorStageProgram(fns, s, stages[s], io, batch,
                                   deterministic_reduction=True)
@@ -165,7 +179,8 @@ def _close(got: np.ndarray, want: torch.Tensor, what: str):
 
 
 FAMILIES = [("deepseek-7b", 2), ("zamba2-1.2b", 2), ("xlstm-350m", 2),
-            ("qwen2-vl-2b", 2), ("gemma3-4b", 2), ("deepseek-moe-16b", 1)]
+            ("qwen2-vl-2b", 2), ("gemma3-4b", 2), ("deepseek-moe-16b", 1),
+            ("seamless-m4t-large-v2", 2)]
 
 
 @pytest.mark.parametrize("arch,data", FAMILIES)
@@ -205,9 +220,26 @@ def test_moe_raises_over_more_than_one_data_rank():
         t["train_step"](_batch(t, 0), 0)
 
 
-def test_enc_dec_raises():
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        _trainer(arch="seamless-m4t-large-v2", layers=4, stages=2, data=1)
+def test_enc_dec_trainer_takes_seq_encoder_frames():
+    """The launcher gives an enc-dec config ``--seq`` frames a row (what
+    ``synth_batch`` makes), unless ``exec_options`` sets ``enc_len``."""
+    t = _trainer(arch="seamless-m4t-large-v2", layers=4, stages=2, data=1)
+    assert t["opts"].enc_len == t["seq"] == 16
+    assert t["batch_specs"]["enc_embeds"] == (0, ("data",))
+    t = _trainer(arch="seamless-m4t-large-v2", layers=4, stages=2, data=1,
+                 exec_options={"enc_len": 24})
+    assert t["opts"].enc_len == 24
+    assert _batch(t, 0)["enc_embeds"].shape == (t["batch_size"], 24, 64)
+    assert np.isfinite(_steps(t, 1)[0])
+    assert _trainer(layers=4, stages=2, data=1)["opts"].enc_len == 0
+
+
+def test_actor_runtime_stops_on_enc_dec():
+    with pytest.raises(SystemExit, match="--runtime table"):
+        train.main(["--runtime", "actor", "--device", "cpu", "--arch",
+                    "seamless-m4t-large-v2", "--stages", "2", "--layers",
+                    "4", "--microbatches", "2", "--seq", "16", "--steps",
+                    "1"])
 
 
 def test_cli_trains_on_the_cpu():
