@@ -35,8 +35,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    hidden state is compared; and one step of the schedule-table executor
    (``--runtime table``: gpt3 at full width cut to 4 layers, seq 256, a
    2 x 4 mesh of ranks; seamless cut to 2 encoder + 2 decoder layers, 256
-   tokens and 384 encoder frames, 1 x 2), the loss and every ZeRO-1 grad
-   shard compared;
+   tokens and 384 encoder frames, 1 x 2; deepseek-moe cut to its dense
+   and first MoE layer, ``ep`` on 2 x 2), the loss, every ZeRO-1 grad
+   shard and every routed expert's grad compared; and the MoE ``tp``
+   layout at the level of the layer (reduced deepseek-moe, 8 experts)
+   over a 2-rank mesh, forward and phased backward, against the CPU mesh
+   and against ``layout="none"`` with the whole weights;
 5. the main paths, each through ``repro_torch.launch.train_actor`` (actor
    training, full width, 4 stages, 8 microbatches of 1 x 2048 tokens,
    bf16): ``paper-gpt3-large`` hint bf for 3 steps, then ``--hint bfw
@@ -54,7 +58,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    microbatches per data rank under 1f1b, each run's K1 and K2 launches
    exactly as ``table_launches`` counts them, its step-0 loss within 1e-4
    of the actor bf run's, the 2 x 4 run's data replicas bitwise equal;
-   then the enc-dec ``seamless-m4t-large-v2`` at full width and depth
+   then (``phase_moe_table_path``) ``deepseek-moe-16b`` cut to 4 layers
+   through ``--runtime table`` on a 2 x 2 mesh (the ``ep`` layout, 32
+   experts a data rank, 4 microbatches per data rank) under 1f1b twice
+   (bitwise) and zb, its launches as ``table_launches`` counts them, its
+   step-0 losses within 1e-4 of an actor bf step's on its 2 stages, its data
+   replicas' replicated leaves bitwise equal and its collectives per step
+   printed; then the enc-dec ``seamless-m4t-large-v2`` at full width and depth
    (24 + 24 layers) through ``--runtime table`` on a 1 x 4 mesh, 8
    microbatches of 2048 decoder tokens and 2048 encoder frames, 1f1b
    twice (bitwise), its launches as ``table_launches`` counts them;
@@ -1171,6 +1181,28 @@ TABLE_RUNS = [("table 1f1b", ["--devices", "4", "--microbatches", "8",
 #: run's (same weights, same batch; the sums over microbatches and ranks
 #: run in another order)
 TOL_TABLE_LOSS = 1e-4
+#: relative tolerance of a table run's step-0 gradient norm (before
+#: clipping) against the actor bf run's (its bf16 gradients summed over
+#: microbatches, data ranks and stages in another order: about bf16's
+#: rounding; the readings are in PERF.md)
+TOL_TABLE_GNORM = 1e-2
+
+
+def check_step0(label, run, actor) -> None:
+    """A table run's step-0 loss and gradient norm against the actor bf
+    run's on the same weights and batch: the forward, and the backward
+    through every gradient the optimizer sees."""
+    l0, la = run.losses[0], actor.losses[0]
+    g0, ga = run.gnorms[0], actor.gnorms[0]
+    rel_l = abs(l0 - la) / abs(la)
+    rel_g = abs(g0 - ga) / abs(ga)
+    print(f"  step-0 loss {l0} vs actor bf {la}: {rel_l:.3e} relative "
+          f"(tolerance {TOL_TABLE_LOSS:g}); gnorm {g0} vs actor bf {ga}: "
+          f"{rel_g:.3e} relative (tolerance {TOL_TABLE_GNORM:g})")
+    if not rel_l <= TOL_TABLE_LOSS:
+        raise AssertionError(f"{label} step-0 loss {l0} vs actor bf {la}")
+    if not rel_g <= TOL_TABLE_GNORM:
+        raise AssertionError(f"{label} step-0 gnorm {g0} vs actor bf {ga}")
 
 
 def table_launches(model, table, data: int) -> dict[str, int]:
@@ -1212,19 +1244,24 @@ def table_launches(model, table, data: int) -> dict[str, int]:
 #: the small table steps (arch, layers, data, stages, seq, enc_len):
 #: gpt3 cut to 4 layers on 2 x 4; seamless cut to 2 encoder + 2 decoder
 #: layers on 1 x 2 with 384 encoder frames against 256 tokens (the
-#: cross-attention's sq != sk)
+#: cross-attention's sq != sk); deepseek-moe cut to its dense layer and
+#: one MoE layer on 2 x 2 (``ep``: 32 of the 64 experts a data rank)
 SMALL_TABLES = [("paper-gpt3-large", 4, 2, 4, 256, 0),
-                ("seamless-m4t-large-v2", 4, 1, 2, 256, 384)]
+                ("seamless-m4t-large-v2", 4, 1, 2, 256, 384),
+                ("deepseek-moe-16b", 2, 2, 2, 256, 0)]
 
 
 def phase_small_table():
     """One table step (executor only) per SMALL_TABLES entry, at full
     width cut to its layers (``registry.cut_depth``), float32, 1
     microbatch per data rank, on the card (kernels) against the CPU (plain
-    versions) on identical weights (made on the CPU, seed 3): the loss and
-    every all-gathered grad shard within TOL_MM of its own max."""
+    versions) on identical weights (made on the CPU, seed 3): the loss,
+    every all-gathered grad shard and every routed expert's grad (the
+    data ranks' shards concatenated) within TOL_MM of its own max.  Then
+    the MoE ``tp`` layout at the level of the layer (``moe_tp_layer``)."""
     for case in SMALL_TABLES:
         small_table_step(*case)
+    moe_tp_layer()
 
 
 def small_table_step(arch, layers, data, stages, seq, enc_len):
@@ -1254,10 +1291,16 @@ def small_table_step(arch, layers, data, stages, seq, enc_len):
             init["sp"] = [model.init_stage_params(s, seed=3, device="cpu")
                           for s in range(model.num_stages)]
             init["io"] = model.init_io_params(seed=3, device="cpu")
-        return ([copy.deepcopy(init["sp"][mesh.coords(r)["model"]])
-                 .to(device) for r in range(mesh.size)],
-                [copy.deepcopy(init["io"]).to(device)
-                 for _ in range(mesh.size)])
+        data, stage_params = mesh.shape["data"], []
+        for r in range(mesh.size):
+            c = mesh.coords(r)
+            sp = init["sp"][c["model"]]
+            sp = (model.shard_stage_params(sp, data, c["data"])
+                  if model.moe_layout != "none" and data > 1
+                  else copy.deepcopy(sp))
+            stage_params.append(sp.to(device))
+        return (stage_params, [copy.deepcopy(init["io"]).to(device)
+                               for _ in range(mesh.size)])
 
     out = {}
     for dev in ("cpu", "cuda"):
@@ -1274,13 +1317,17 @@ def small_table_step(arch, layers, data, stages, seq, enc_len):
         res = mesh.run(t["exec_fn"], [
             (t["stage_params"][r], t["io_params"][r], shards[r])
             for r in range(mesh.size)])
-        grads = zero1_state_to_reference(
+        ref = zero1_state_to_reference(
             t["model"], mesh, t["partition"],
             [{"shards": {k: {"g": g} for k, g in o[1].items()},
-              "experts": {}} for o in res])["shards"]
+              "experts": {k: {"g": g} for k, g in o[2].items()}}
+             for o in res])
+        grads = {**ref["shards"], **{"expert " + k: v for k, v
+                                     in ref["experts"].items()}}
         out[dev] = (float(res[0][0]["loss"]), grads)
         print(f"  {dev}: loss {out[dev][0]:.6f}  "
-              f"{time.perf_counter() - t0:.1f} s")
+              f"{time.perf_counter() - t0:.1f} s  collectives "
+              f"{dict(sorted(mesh.counts.items()))}")
         del t, res
     l_cpu, l_gpu = out["cpu"][0], out["cuda"][0]
     if not math.isfinite(l_gpu) or abs(l_gpu - l_cpu) > TOL_MM * abs(l_cpu):
@@ -1293,16 +1340,112 @@ def small_table_step(arch, layers, data, stages, seq, enc_len):
         if not math.isfinite(rel) or rel > TOL_MM:
             raise AssertionError(f"table grad shard {k}: max |card - CPU| "
                                  f"is {rel:.3e} of max |grad|")
-    print(f"  loss within {TOL_MM:g} relative; {len(out['cpu'][1])} grad "
-          f"shards: max |card - CPU| at most {worst:.3e} of their max |.| "
-          f"(tolerance {TOL_MM:g})  ok")
+    n_exp = sum(k.startswith("expert ") for k in out["cpu"][1])
+    print(f"  loss within {TOL_MM:g} relative; {len(out['cpu'][1]) - n_exp}"
+          f" grad shards and {n_exp} expert grads: max |card - CPU| at most "
+          f"{worst:.3e} of their max |.| (tolerance {TOL_MM:g})  ok")
     torch.cuda.empty_cache()
 
 
-def table_run(label, name, argv):
-    """One ``--runtime table`` run, ``train.main(argv)``, its launch counts
-    zeroed just before and read just after: finite losses and gnorms, and
-    K1 and K2 launched exactly as ``table_launches`` counts.  Returns
+def moe_tp_layer():
+    """The MoE ``tp`` layout at the level of the layer: ``moe_ffn`` of the
+    reduced deepseek-moe config (8 experts, so ``tp``: each rank holds
+    every expert's d_ff / 2 slice), float32, over a 2-rank mesh, forward
+    and the phased backward (``models/phases.py``: the exchanges and their
+    transposes called by the rank threads while the card's autograd runs
+    on its own thread), held against the same on the CPU mesh and against
+    ``layout="none"`` per rank with the whole weights, within TOL_MM of
+    each tensor's max; a second launch on the card gives the same bits.
+    No attention kernel runs here."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.phases import phased_grads
+
+    cfg = registry.reduced_config("deepseek-moe-16b", 4)
+    data, layout = 2, "tp"
+    rng = np.random.default_rng(7)
+    whole = moe.MoEFFN(cfg, None, "cpu")
+    with torch.no_grad():
+        for p in whole.parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(tuple(p.shape))
+                                     .astype(np.float32) * 0.3))
+    xs = [torch.from_numpy(rng.standard_normal((2, 64, cfg.d_model))
+                           .astype(np.float32)) for _ in range(data)]
+    gys = [torch.from_numpy(rng.standard_normal((2, 64, cfg.d_model))
+                            .astype(np.float32)) for _ in range(data)]
+    names = [n for n, _ in whole.named_parameters()]
+
+    def shard(i, device):
+        part = moe.MoEFFN(cfg, None, device, layout=layout, data_size=data)
+        with torch.no_grad():
+            for (n, p), q in zip(part.named_parameters(), whole.parameters()):
+                dim = moe.expert_shard_dim(n, layout)
+                p.copy_(q if dim is None else moe.take_shard(q, dim, data, i))
+        return part
+
+    def on_mesh(device):
+        mesh = make_mesh(data, 1, device=device)
+        ex = mesh.exchange_over("data")
+        parts = [shard(i, device) for i in range(data)]
+
+        def rank(r):
+            p = parts[r]
+            phases, cuts = moe.moe_phases(p, cfg, layout, data)
+            gx, grads, out = phased_grads(
+                phases, cuts, {"h": xs[r].to(device)}, ex,
+                list(p.parameters()), {"h": gys[r].to(device)}, ("h",))
+            return [out["h"].detach(), gx["h"], *grads]
+
+        res = mesh.run(rank, [(r,) for r in range(data)])
+        return [[t.cpu() for t in per_rank] for per_rank in res], mesh
+
+    card_a, mesh = on_mesh("cuda")
+    card_b, _ = on_mesh("cuda")
+    cpu, _ = on_mesh("cpu")
+    whole_runs = []
+    for r in range(data):
+        x = xs[r].clone().requires_grad_()
+        y = moe.moe_ffn(whole, x, cfg)
+        whole_runs.append([y.detach(), *torch.autograd.grad(
+            y, [x] + list(whole.parameters()), gys[r])])
+    print(f"MoE tp layer (reduced deepseek-moe, {cfg.moe.num_experts} "
+          f"experts, d_ff {cfg.d_ff} split over {data} ranks), forward + "
+          f"phased backward on the card vs the CPU mesh vs layout none; "
+          f"collectives {dict(sorted(mesh.counts.items()))}:")
+    worst = 0.0
+    for r in range(data):
+        for j, what in enumerate(["y", "dx"] + names):
+            a, b, c = card_a[r][j], card_b[r][j], cpu[r][j]
+            if not torch.equal(a, b):
+                raise AssertionError(f"tp layer rank {r} {what}: two "
+                                     f"launches differ")
+            want = whole_runs[r][j]
+            dim = None if j < 2 else moe.expert_shard_dim(what, layout)
+            if dim is not None:  # every rank's tokens, this rank's shard
+                want = moe.take_shard(sum(w[j] for w in whole_runs), dim,
+                                      data, r)
+            for other, label in ((c, "CPU mesh"), (want, "layout none")):
+                scale = max(float(other.abs().max()), 1e-30)
+                rel = float((a - other).abs().max()) / scale
+                worst = max(worst, rel)
+                if not math.isfinite(rel) or rel > TOL_MM:
+                    raise AssertionError(f"tp layer rank {r} {what}: card vs "
+                                         f"{label} {rel:.3e} of its max")
+    print(f"  y, dx and {len(names)} parameter grads on both ranks: max "
+          f"|card - CPU mesh|, |card - layout none| at most {worst:.3e} of "
+          f"their max (tolerance {TOL_MM:g}); two launches bitwise  ok")
+
+
+def table_run(label, name, argv, cfg=None):
+    """One ``--runtime table`` run, ``train.main(argv)`` (with ``cfg``,
+    ``train_table(args, cfg=cfg)``, as the launcher runs it), its launch
+    counts zeroed just before and read just after: finite losses and
+    gnorms, and K1 and K2 launched exactly as ``table_launches`` counts.
+    Prints the mesh's collectives per step (every rank's calls).  Returns
     (run, counts, peak bytes); ``run.trainer`` is kept for the caller's own
     checks."""
     import torch
@@ -1311,11 +1454,17 @@ def table_run(label, name, argv):
     from repro_torch.launch import train
 
     print(f"main path {label} ({name}): python -m repro_torch.launch.train "
-          + " ".join(argv))
+          + " ".join(argv) + ("" if cfg is None else
+                              f"  [cfg: registry.cut_depth, {cfg.pattern}]"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    run = train.main(argv)
+    if cfg is None:
+        run = train.main(argv)
+    else:
+        args = train.parser().parse_args(argv)
+        train._check_table_flags(args)
+        run = train.train_table(args, cfg=cfg)
     counts = ops.launch_counts()
     mem = torch.cuda.max_memory_allocated()
     t = run.trainer
@@ -1326,6 +1475,11 @@ def table_run(label, name, argv):
     print(f"  losses {run.losses}  gnorms {run.gnorms}  step seconds "
           f"{run.step_seconds}  launches {counts} (from the code "
           f"{want})  peak memory {mem / 2**30:.2f} GiB")
+    for i, coll in enumerate(run.collectives):
+        print(f"  step {i} collectives (calls, host seconds inside them, "
+              f"summed over the {t['mesh'].size} ranks): "
+              + ", ".join(f"{k} {n} {sec:.3f}"
+                          for k, (n, sec) in coll.items()))
     for i, sec in enumerate(run.step_seconds):
         print(f"  step {i}: {sec:.3f} s  {tokens / sec:,.0f} tokens/s")
     print("  card after the run (SM clock, max SM clock, power, "
@@ -1355,39 +1509,121 @@ def phase_table_path(actor_runs):
     width through K1 and K2, four schedules on a 1 x 4 mesh and 1f1b on a
     2 x 4 mesh, each checked by ``table_run``; each run's step-0 loss must
     be the actor bf run's (``actor_runs``: same weights, same batch) within
-    TOL_TABLE_LOSS; the two 1f1b runs must give the same bits; after the 2
-    x 4 run the two data replicas' parameters must be bitwise equal."""
+    TOL_TABLE_LOSS and its gradient norm within TOL_TABLE_GNORM
+    (``check_step0``); the two 1f1b runs must give the same bits; after
+    the 2 x 4 run the two data replicas' parameters must be bitwise
+    equal."""
     import torch
 
     runs = {}
-    l_actor = actor_runs["paper-gpt3-large", "bf"][0].losses[0]
+    actor = actor_runs["paper-gpt3-large", "bf"][0]
     for name, extra in TABLE_RUNS:
         run, counts, mem = table_run("paper-gpt3-large", name,
                                      TABLE_ARGS + extra)
         t = run.trainer
-        l0 = run.losses[0]
-        if abs(l0 - l_actor) > TOL_TABLE_LOSS * abs(l_actor):
-            raise AssertionError(f"{name} step-0 loss {l0} vs actor bf "
-                                 f"{l_actor}")
-        print(f"  step-0 loss {l0} vs actor bf {l_actor}: within "
-              f"{TOL_TABLE_LOSS:g} (relative)")
+        check_step0(name, run, actor)
         if name == "table 1f1b 2x4":
-            mesh = t["mesh"]
-            for r in range(mesh.size):
-                twin = mesh.rank_of(data=0, model=mesh.coords(r)["model"])
-                for a, b in zip(t["stage_params"][r].parameters(),
-                                t["stage_params"][twin].parameters()):
-                    if not torch.equal(a, b):
-                        raise AssertionError(f"rank {r} and its replica "
-                                             f"{twin} hold other params")
-            print(f"  the two data replicas' parameters are bitwise equal "
-                  f"after {len(run.losses)} steps")
+            check_replicas(t, len(run.losses))
         run.trainer = None
         del t
         runs["paper-gpt3-large", name] = (run, counts, mem)
         torch.cuda.empty_cache()
     same_runs("table 1f1b", runs["paper-gpt3-large", "table 1f1b"][0],
               runs["paper-gpt3-large", "table 1f1b again"][0])
+    return runs
+
+
+def check_replicas(t, steps: int) -> None:
+    """After a table run on more than one data rank, every rank holds its
+    data-index-0 twin's replicated stage leaves bitwise; a data-sharded
+    leaf (the MoE layouts' experts) is a shard, no replica, and is left
+    out."""
+    import torch
+
+    mesh, part = t["mesh"], t["partition"]
+    shards = [k for k in part.stage_keys if part.stage_data_sharded[k]]
+    for r in range(mesh.size):
+        twin = mesh.rank_of(data=0, model=mesh.coords(r)["model"])
+        mine = part.stage_leaves(t["stage_params"][r].parameters())
+        theirs = part.stage_leaves(t["stage_params"][twin].parameters())
+        for k in part.stage_keys:
+            if part.stage_data_sharded[k]:
+                continue
+            if not all(torch.equal(a, b) for a, b in zip(mine[k],
+                                                         theirs[k])):
+                raise AssertionError(f"rank {r} and its replica {twin} "
+                                     f"hold other {k}")
+    print(f"  the data replicas' replicated parameters are bitwise equal "
+          f"after {steps} steps"
+          + (f" (the data-sharded expert leaves {shards} left out)"
+             if shards else ""))
+
+
+#: the MoE table path (phase_moe_table_path): deepseek-moe-16b at full
+#: width cut to 4 layers (the dense layer, then 3 MoE layers of 64
+#: experts, top-6, 2 shared) through ``--runtime table`` on a 2 x 2 mesh
+#: (2 stages of 2 layers): the ``ep`` layout, 32 experts a data rank, 4
+#: microbatches of 1 x 2048 tokens per data rank (the actor bf run's 8
+#: rows); 1f1b twice and zb once, 2 steps each.  A 2 x 4 mesh (eight
+#: ranks, each with its own io copy and every slot the union of the dense
+#: and MoE leaves: 69.2 GiB of weights, grads and optimizer state) ran out
+#: of memory in step 0, in the last stage's first B, with 76.83 GiB
+#: allocated of the card's 79.18 (``launch/profile.py``, PERF.md)
+MOE_TABLE_LAYERS = 4
+MOE_TABLE_ARGS = ["--runtime", "table", "--arch", "deepseek-moe-16b",
+                  "--full-size", "--devices", "4", "--stages", "2",
+                  "--microbatches", "4", "--mb-rows", "1", "--seq", "2048",
+                  "--steps", "2", "--device", "cuda"]
+MOE_TABLE_RUNS = [("table 1f1b", ["--schedule", "1f1b"]),
+                  ("table 1f1b again", ["--schedule", "1f1b"]),
+                  ("table zb", ["--schedule", "zb"])]
+
+
+def phase_moe_table_path():
+    """deepseek-moe-16b through ``--runtime table`` (MOE_TABLE_ARGS, the
+    config ``registry.cut_depth``): the MoE exchanges over the data ranks,
+    called by the rank threads between autograd calls, with K1 and K2;
+    each run checked by ``table_run``; its step-0 loss and gradient norm
+    within TOL_TABLE_LOSS and TOL_TABLE_GNORM of a deepseek actor bf
+    step's on the table's stages (``check_step0``; same weights: the
+    seeded init draws each layer from its stage and slot; same batch);
+    the two 1f1b runs give the same bits; after each run the data
+    replicas hold bitwise equal replicated leaves."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+
+    gc.collect()  # the earlier table runs' ranks and state
+    torch.cuda.empty_cache()
+    arch = "deepseek-moe-16b"
+    cfg = registry.cut_depth(arch, MOE_TABLE_LAYERS)
+    argv = ["--arch", arch] + COMMON_ARGS + ["--steps", "1", "--hint", "bf"]
+    i = argv.index("--stages") + 1
+    argv[i] = MOE_TABLE_ARGS[MOE_TABLE_ARGS.index("--stages") + 1]
+    print("the actor bf reference of the MoE table runs: python -m "
+          "repro_torch.launch.train " + " ".join(argv))
+    actor = train.train_actor(train.parser().parse_args(argv), cfg=cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, extra in MOE_TABLE_RUNS:
+        run, counts, mem = table_run(arch, name, MOE_TABLE_ARGS + extra,
+                                     cfg=cfg)
+        t = run.trainer
+        if t["model"].moe_layout != "ep":
+            raise AssertionError(f"{arch}: layout {t['model'].moe_layout}")
+        check_step0(f"{arch} {name}", run, actor)
+        check_replicas(t, len(run.losses))
+        run.trainer = None
+        del t
+        runs[arch, name] = (run, counts, mem)
+        gc.collect()
+        torch.cuda.empty_cache()
+    same_runs(f"{arch} table 1f1b", runs[arch, "table 1f1b"][0],
+              runs[arch, "table 1f1b again"][0])
     return runs
 
 
@@ -1836,6 +2072,7 @@ def main(argv=None) -> int:
     runs = phase_main_path()
     torch.cuda.empty_cache()
     runs.update(phase_table_path(runs))
+    runs.update(phase_moe_table_path())
     runs.update(phase_enc_dec_table_path())
     runs.update(phase_runtime_flags())
     runs.update(phase_multimodal_path())

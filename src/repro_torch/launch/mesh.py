@@ -7,8 +7,9 @@ each running the same rank-local program (the ``shard_map`` body).  A rank
 reads its coordinates with :meth:`Mesh.axis_index` and talks to the ranks
 of an axis group through the collectives, whose names and semantics are
 JAX's: ``ppermute``, ``psum``, ``psum_scatter`` (``tiled=False``, over
-dimension 0) and ``all_gather`` (``tiled=True``) over one axis or a tuple
-of them.
+dimension 0), ``all_gather`` (``tiled=True`` by default, or stacked along a
+new dimension 0) and ``all_to_all`` (``split_axis=0, concat_axis=0,
+tiled=False``) over one axis or a tuple of them.
 
 What the mesh guarantees:
 
@@ -29,7 +30,17 @@ What the mesh guarantees:
   the collective; a rank whose group holds a rank that already returned
   raises at once; when any rank raises, the others' pending and later
   rendezvous abort, and :meth:`Mesh.run` re-raises the first error in the
-  caller.
+  caller;
+* a collective is called by its rank's own thread, never inside an
+  autograd backward: there, on CUDA tensors, PyTorch's engine runs the
+  nodes on its own device thread, which has no rank and which every rank's
+  backward queues on, so a rendezvous would wait for ranks queued behind
+  it.  ``_exchange`` raises :class:`CollectiveError` whenever autograd is
+  executing a graph task (a checkpoint's recompute, an
+  ``autograd.Function.backward``), on the CPU as well, where the engine
+  would run the node on the calling rank's thread and a wrong design would
+  pass.  A differentiated stage that exchanges is cut at its collectives
+  instead (``models/phases.py``).
 
 Rank ``r``'s coordinates are row-major over the axes, the last (``model``)
 fastest, as ``jax.make_mesh`` lays out devices.  A ``torch.distributed``
@@ -84,6 +95,11 @@ class Mesh:
         self._groups: dict[tuple, _Group] = {}
         self._failed: tuple[int, BaseException] | None = None
         self._finished: set[int] = set()
+        #: collective name -> calls and host seconds inside them (both
+        #: rendezvous and the copies), summed over ranks (each rank's call
+        #: counts once); :meth:`reset_counts` zeroes them
+        self.counts: dict[str, int] = {}
+        self.seconds: dict[str, float] = {}
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, device={self.device})"
@@ -149,6 +165,12 @@ class Mesh:
                   ) -> dict[int, Any]:
         """Deposit ``payload`` and wait for every member of the group's
         deposit; returns rank -> payload."""
+        if torch._C._current_graph_task_id() != -1:
+            raise CollectiveError(
+                f"rank {getattr(self._local, 'rank', None)}: {name} over "
+                f"{'/'.join(axes)} inside an autograd backward (a "
+                f"checkpoint's recompute or a Function.backward): call "
+                f"collectives from the rank thread, between autograd calls")
         rank, g = self.rank, self._group(axes)
         where = (f"rank {rank} {self.coords(rank)}: {name} over "
                  f"{'/'.join(axes)}")
@@ -193,9 +215,14 @@ class Mesh:
         second rendezvous so that no owner writes a tensor in place before
         every rank of the group has enqueued its reads."""
         axes = self._axes(axes)
+        t0 = time.perf_counter()
         got = self._exchange(name, axes, payload)
         out = combine(got)
         self._exchange(name + " (release)", axes)
+        with self._lock:
+            self.counts[name] = self.counts.get(name, 0) + 1
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
         return out
 
     # ---- collectives ---------------------------------------------------
@@ -233,16 +260,56 @@ class Mesh:
             "psum_scatter", axes, x,
             lambda got: _sum_in_rank_order({r: v[i] for r, v in got.items()}))
 
-    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """The group's ``x`` concatenated along dimension 0 in group-index
-        order (JAX's ``all_gather(tiled=True)``)."""
+    def all_gather(self, x: torch.Tensor, axes, tiled: bool = True
+                   ) -> torch.Tensor:
+        """The group's ``x`` in group-index order, concatenated along
+        dimension 0 (JAX's ``all_gather(tiled=True)``) or, with
+        ``tiled=False``, stacked along a new dimension 0."""
         axes = self._axes(axes)
+        join = torch.cat if tiled else torch.stack
 
         def gather(got):
             by_index = {self.group_index(axes, r): v for r, v in got.items()}
-            return torch.cat([by_index[i] for i in sorted(by_index)])
+            return join([by_index[i] for i in sorted(by_index)])
 
         return self._collective("all_gather", axes, x, gather)
+
+    def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Row ``i`` of the result is row ``group_index`` of group member
+        ``i``'s ``x``, whose first dimension is the group's size (JAX's
+        ``all_to_all(split_axis=0, concat_axis=0, tiled=False)``)."""
+        axes = self._axes(axes)
+        n = self.group_size(axes)
+        if x.shape[0] != n:
+            raise ValueError(f"all_to_all over {axes}: dimension 0 of "
+                             f"{tuple(x.shape)} is not the group size {n}")
+        i = self.group_index(axes)
+
+        def swap(got):
+            by_index = {self.group_index(axes, r): v for r, v in got.items()}
+            return torch.stack([by_index[j][i] for j in range(n)])
+
+        return self._collective("all_to_all", axes, x, swap)
+
+    def exchange_over(self, axes) -> Callable[[str, torch.Tensor],
+                                              torch.Tensor]:
+        """``exchange(name, x)``: the collective ``name`` (``all_to_all``,
+        ``all_gather`` stacked, ``psum_scatter``) over ``axes``, the form a
+        stage cut at its exchanges takes (``models/phases.py``)."""
+        axes = self._axes(axes)
+
+        def exchange(name: str, x: torch.Tensor) -> torch.Tensor:
+            if name == "all_gather":
+                return self.all_gather(x, axes, tiled=False)
+            if name not in ("all_to_all", "psum_scatter"):
+                raise ValueError(f"no exchange {name!r}")
+            return getattr(self, name)(x, axes)
+
+        return exchange
+
+    def reset_counts(self) -> None:
+        with self._lock:
+            self.counts, self.seconds = {}, {}
 
     # ---- running a rank program ----------------------------------------
     def run(self, fn: Callable, per_rank_args: Sequence[tuple]) -> list:

@@ -20,7 +20,12 @@ cache 4096), with ``--runtime table``
 :func:`~repro_torch.launch.train.train_table` (default flags: the table
 phase's first run in ``chip_smoke.py``: paper-gpt3-large full size,
 ``--devices 4 --stages 4``, 8 microbatches of 1 x 2048 tokens,
-``--schedule 1f1b``; every rank is a thread of this process), and traces
+``--schedule 1f1b``; every rank is a thread of this process; with
+``--depth N`` the config cut to N layers, e.g. ``--depth 4 --arch
+deepseek-moe-16b --full-size --devices 8 --stages 4 --microbatches 4
+--mb-rows 1 --seq 2048 --schedule 1f1b`` for the MoE ``ep`` layout over
+two data ranks, whose exchanges' copies show as ``cat / stack`` and
+whose collectives' calls and host seconds are printed), and traces
 the third step with CUDA activity.  Prints the step's wall time, the device's
 busy time (union of kernel intervals; every stage shares the default
 stream) and idle share, the time per kernel category and the heaviest
@@ -66,6 +71,9 @@ CATEGORIES = (
     # index_put_ sorts its indices
     ("sort / top-k / scan", ("sort", "topk", "Sort", "scan", "radix")),
     ("indexing", ("index", "scatter", "gather", "embedding")),
+    # torch.cat / torch.stack: the mesh's all_to_all and stacked
+    # all_gather copies (the MoE exchanges), ZeRO-1's leaf flattening
+    ("cat / stack (mesh exchanges)", ("CatArrayBatchedCopy",)),
     ("copies / casts / fills", ("copy", "Memcpy", "Memset", "fill",
                                 "cat")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -186,6 +194,9 @@ def main(argv=None) -> dict:
                            "of device time and needs a GPU run")
     out["step_seconds"] = run.step_seconds
     out["runtime"] = own.runtime
+    if own.runtime == "table":
+        out["collectives"] = {k: {"calls": n, "host_s": sec} for k, (n, sec)
+                              in run.collectives[2].items()}
     out["card"] = torch.cuda.get_device_name(0)
     print(f"traced step: wall {out['step_wall_s']:.3f} s, kernels span "
           f"{out['kernel_window_s']:.3f} s, device busy "
@@ -199,6 +210,9 @@ def main(argv=None) -> dict:
               f" us  {k['name']}")
     for n, t in out["top_host_ops_self_s"].items():
         print(f"  host {t:8.4f} s  {n}")
+    for k, c in out.get("collectives", {}).items():
+        print(f"  mesh {k:12s} {c['calls']:6d} calls  {c['host_s']:8.3f} s "
+              f"host inside them (summed over the ranks)")
     if own.out:
         Path(own.out).parent.mkdir(parents=True, exist_ok=True)
         Path(own.out).write_text(json.dumps(out, indent=1))

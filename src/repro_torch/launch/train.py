@@ -83,6 +83,7 @@ from repro_torch.models.convert import (
     params_to_reference,
     rank_params_from_reference,
     rank_params_to_reference,
+    rank_reference_layout,
     reference_layout,
     state_from_reference,
     state_to_reference,
@@ -138,11 +139,15 @@ class TrainRun:
     #: checkpoint I/O: one dict per save, resume or respawn restore
     #: (``op``, ``step``, ``seconds``, and ``bytes`` for a save)
     ckpt_log: list[dict] = dataclasses.field(default_factory=list)
-    #: ``--runtime table``: each step's global grad norm (before clipping)
+    #: each step's global grad norm (the table runtime's before clipping;
+    #: the actor path does not clip)
     gnorms: list[float] = dataclasses.field(default_factory=list)
     #: ``--runtime table``: the :func:`build_trainer` dict (the per-rank
     #: parameters and optimizer state after the last step)
     trainer: Any = None
+    #: ``--runtime table``: each step's mesh collectives, name -> (calls,
+    #: host seconds inside them), summed over the ranks (``Mesh.counts``)
+    collectives: list[dict] = dataclasses.field(default_factory=list)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -253,6 +258,19 @@ def _or(value, default):
 def _step_bytes(store: CheckpointStore, step: int) -> int:
     d = os.path.join(store.dir, f"step_{step}")
     return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+@torch.no_grad()
+def _global_norm(grads) -> torch.Tensor:
+    """The float32 norm of every gradient together (``None``: zero), the
+    table runtime's clip norm; the actor path records it and does not
+    clip."""
+    sq = None
+    for g in grads:
+        if g is not None:
+            gf = g.float()
+            sq = torch.sum(gf * gf) if sq is None else sq + torch.sum(gf * gf)
+    return torch.sqrt(sq)
 
 
 def train_actor(args, *, cfg=None, init_params=None,
@@ -455,11 +473,13 @@ def train_actor(args, *, cfg=None, init_params=None,
         for p in programs[1:]:
             d_io = [a if b is None else b if a is None else a + b
                     for a, b in zip(d_io, p.d_io)]
+        gnorm = _global_norm(grads + d_io)
         lr = apply_update(params, grads + d_io, mstate, vstate, step)
         # one device sync per step: the programs keep the loss on device
         loss = float(sum(p.loss_acc for p in programs)) / tokens
         dt = time.perf_counter() - t0
         run.losses.append(loss)
+        run.gnorms.append(float(gnorm))
         run.step_seconds.append(dt)
         if record_this:
             run.trace = _save_trace(args, driver, step, loss)
@@ -514,7 +534,11 @@ def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
     Every rank ``r`` holds ``stage_params[r]`` (its ``model`` index's
     stage), ``io_params[r]`` and ``opt_state[r]``; the weights are the
     actor path's seeded init (seed 0), copied to every replica, so a table
-    run and an actor run of one arch start from the same weights.
+    run and an actor run of one arch start from the same weights.  Under
+    an MoE expert layout over ``data > 1`` ranks each stage is drawn
+    whole, as the actor path draws it, and each rank keeps its shard of
+    the routed experts (``ArchModel.shard_stage_params``), so every
+    ``data`` starts from the same global weights.
     ``cfg`` replaces the config built from ``arch``/``layers``/``reduced``;
     ``init_params(model, mesh, device) -> (stage_params, io_params)``
     (per-rank lists) replaces the seeded init; ``exec_options`` replaces
@@ -533,13 +557,25 @@ def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
     model = build(cfg, num_stages=stages)
     mesh = make_mesh(data, stages, device=device)
     if init_params is None:
-        sp0 = [model.init_stage_params(s, seed=0, device=device)
-               for s in range(stages)]
+        shard = model.moe_layout != "none" and data > 1
+        stage_params: list = [None] * mesh.size
+        sp0 = []
+        for s in range(stages):
+            full = model.init_stage_params(s, seed=0, device=device)
+            if not shard:
+                sp0.append(full)
+                continue
+            # each data rank's shard, then the whole stage is freed
+            for i in range(data):
+                stage_params[mesh.rank_of(data=i, model=s)] = (
+                    model.shard_stage_params(full, data, i))
+            del full
         io0 = model.init_io_params(seed=0, device=device)
-        stage_params, io_params = [], []
+        io_params = []
         for r in range(mesh.size):
             s, first = mesh.coords(r)["model"], mesh.coords(r)["data"] == 0
-            stage_params.append(sp0[s] if first else copy.deepcopy(sp0[s]))
+            if not shard:
+                stage_params[r] = sp0[s] if first else copy.deepcopy(sp0[s])
             io_params.append(io0 if r == 0 else copy.deepcopy(io0))
     else:
         stage_params, io_params = init_params(model, mesh, device)
@@ -595,9 +631,8 @@ def _table_ckpt_tree(t: dict) -> dict:
 def _table_restore(t: dict, store: CheckpointStore, step: int) -> None:
     """Load checkpoint ``step`` into the trainer's per-rank state."""
     model, mesh, device = t["model"], t["mesh"], t["mesh"].device
-    sp_meta, io_meta = reference_layout(
-        model, [t["stage_params"][mesh.rank_of(model=s)]
-                for s in range(model.num_stages)], t["io_params"][0])
+    sp_meta, io_meta = rank_reference_layout(model, mesh, t["stage_params"],
+                                             t["io_params"])
     target = {"stage_params": sp_meta, "io_params": io_meta,
               "opt_state": zero1_state_layout(model, mesh, t["partition"],
                                               t["opt_state"][0])}
@@ -658,11 +693,14 @@ def train_table(args, *, cfg=None, step_hook=None) -> TrainRun:
     try:
         for _ in range(args.steps - start_step):
             step, arrays = next(it)
+            t["mesh"].reset_counts()
             t0 = time.perf_counter()
             m = t["train_step"](_device_batch(arrays, t["mesh"].device),
                                 step)
             loss = float(m["loss"])  # the step's one device sync
             dt = time.perf_counter() - t0
+            run.collectives.append({k: (n, t["mesh"].seconds[k]) for k, n
+                                    in sorted(t["mesh"].counts.items())})
             run.losses.append(loss)
             run.step_seconds.append(dt)
             run.gnorms.append(float(m["gnorm"]))

@@ -18,8 +18,12 @@ activation is ``concat(dec, enc)`` along the sequence, split at
 ``aux["dec_len"]``; ``enc`` runs a non-causal decoder layer over the
 encoder frames, ``dec`` causal self-attention, cross-attention against
 the frames (non-causal, no RoPE) and the FFN over the decoder tokens.  The
-MoE layouts over more than one data rank (``moe_layout`` ``ep``/``tp``; one
-rank computes them as ``none``) move with ROADMAP.md queue 1, item 18a.
+MoE layouts over more than one data rank (``moe_layout`` ``ep``/``tp``;
+one rank computes them as ``none``): a stage's modules hold its rank's
+expert shard (``init_stage_params(data_size=...)``,
+:meth:`ArchModel.shard_stage_params`), and the stage, forward and
+backward, runs cut at its exchanges (:meth:`ArchModel.stage_phases`,
+``models/phases.py``); :meth:`ArchModel.stage_forward` refuses it.
 
 Decode caches are trees of nested dicts, one per stage, each leaf stacked
 ``[l_max, batch, ...]`` (the reference's ``[S, l_max, ...]`` tree holds one
@@ -56,7 +60,15 @@ from repro_torch.models.layers import (
     rmsnorm,
     zeros_param,
 )
-from repro_torch.models.moe import MoEFFN, moe_ffn
+from repro_torch.models.moe import (
+    MoEFFN,
+    expert_shard_dim,
+    moe_ffn,
+    moe_phases,
+    sharded,
+    take_shard,
+)
+from repro_torch.models.phases import chain
 from repro_torch.models.ssm import (
     MambaLayer,
     init_mamba_cache,
@@ -98,9 +110,12 @@ class LayerSlot(nn.Module):
     enc-dec kinds, ``cross_ln`` and ``cross`` (cross-attention, no biases)
     for ``dec``; ``ln1``, ``attn``, ``ln2`` and ``moe`` (routed experts)
     and/or ``dense_ffn`` (``moe.dense_d_ff`` wide) for ``moe``/``dense``;
-    ``mamba``, ``mlstm`` and ``slstm`` for their kinds."""
+    ``mamba``, ``mlstm`` and ``slstm`` for their kinds.  ``layout`` and
+    ``data_size`` size the routed experts as one rank's shard
+    (:class:`~repro_torch.models.moe.MoEFFN`)."""
 
-    def __init__(self, cfg: ArchConfig, layer_types, gen, device):
+    def __init__(self, cfg: ArchConfig, layer_types, gen, device, *,
+                 layout: str = "none", data_size: int = 1):
         super().__init__()
         types = set(layer_types)
         if types & {*ATTN_KINDS, "enc", "dec"}:
@@ -113,7 +128,8 @@ class LayerSlot(nn.Module):
             self.attn = Attention(cfg, gen, device)
             self.ln2 = zeros_param((cfg.d_model,), cfg.dtype, device)
             if "moe" in types:
-                self.moe = MoEFFN(cfg, gen, device)
+                self.moe = MoEFFN(cfg, gen, device, layout=layout,
+                                  data_size=data_size)
             if "dense" in types:
                 self.dense_ffn = FFN(cfg, gen, device, cfg.moe.dense_d_ff)
         if "mamba" in types:
@@ -125,12 +141,15 @@ class LayerSlot(nn.Module):
 
 
 class StageParams(nn.Module):
-    """One stage's ``l_max`` layer slots."""
+    """One stage's ``l_max`` layer slots (routed experts: one rank's shard
+    of ``data_size``)."""
 
-    def __init__(self, model: "ArchModel", gen_for_slot, device):
+    def __init__(self, model: "ArchModel", gen_for_slot, device,
+                 data_size: int = 1):
         super().__init__()
         self.slots = nn.ModuleList(
-            LayerSlot(model.cfg, model.layer_types, gen_for_slot(i), device)
+            LayerSlot(model.cfg, model.layer_types, gen_for_slot(i), device,
+                      layout=model.moe_layout, data_size=data_size)
             for i in range(model.l_max))
 
 
@@ -173,13 +192,38 @@ class ArchModel:
     # params (``seed=None`` allocates without initialising, for loading)
     # ------------------------------------------------------------------
     def init_stage_params(self, stage: int, *, seed: int | None = 0,
-                          device="cuda") -> StageParams:
+                          device="cuda", data_size: int = 1) -> StageParams:
+        """Stage ``stage``'s module; with ``data_size > 1`` and an expert
+        layout, one rank's shard (allocated only: ``seed`` None)."""
         def gen_for_slot(i):
             if seed is None:
                 return None
             return make_generator(seed, stage * 1000 + i, device)
 
-        return StageParams(self, gen_for_slot, device)
+        return StageParams(self, gen_for_slot, device, data_size)
+
+    def expert_shard_dim(self, name: str, data_size: int) -> int | None:
+        """The dim of stage parameter ``name`` (``slots.{i}.<path>``) that
+        ``data_size`` ranks shard, or None (replicated)."""
+        parts = name.split(".")
+        if len(parts) < 2 or parts[-2] != "moe" or not sharded(
+                self.moe_layout, data_size):
+            return None
+        return expert_shard_dim(parts[-1], self.moe_layout)
+
+    @torch.no_grad()
+    def shard_stage_params(self, full: StageParams, data_size: int,
+                           index: int) -> StageParams:
+        """Data rank ``index``'s copy of the stage module ``full``: its
+        shard of every routed-expert leaf and a clone of the rest."""
+        device = next(full.parameters()).device
+        sp = StageParams(self, lambda i: None, device, data_size)
+        for (name, p), (_, q) in zip(sp.named_parameters(),
+                                     full.named_parameters(), strict=True):
+            dim = self.expert_shard_dim(name, data_size)
+            p.copy_(q if dim is None else take_shard(q, dim, data_size,
+                                                     index))
+        return sp
 
     def init_io_params(self, *, seed: int | None = 0,
                        device="cuda") -> IOParams:
@@ -196,6 +240,14 @@ class ArchModel:
         if kind == "attn_local":
             return self.cfg.sliding_window or 1024
         return 0
+
+    def _moe_attn(self, slot: LayerSlot, x, aux):
+        """The attention half of a ``moe``/``dense`` layer: (the residual
+        stream, the FFN's input)."""
+        cfg = self.cfg
+        h = rmsnorm(x, slot.ln1, cfg.norm_eps)
+        x = x + attention_block(slot.attn, h, aux["positions"], cfg)
+        return x, rmsnorm(x, slot.ln2, cfg.norm_eps)
 
     def _moe_ffn(self, slot: LayerSlot, kind: str, h, aux):
         """The FFN half of a ``moe``/``dense`` layer."""
@@ -216,9 +268,7 @@ class ArchModel:
         if kind in MOE_KINDS:
 
             def moe_fn(slot: LayerSlot, io, x, aux):
-                h = rmsnorm(x, slot.ln1, cfg.norm_eps)
-                x = x + attention_block(slot.attn, h, aux["positions"], cfg)
-                h = rmsnorm(x, slot.ln2, cfg.norm_eps)
+                x, h = self._moe_attn(slot, x, aux)
                 return x + self._moe_ffn(slot, kind, h, aux)
 
             return moe_fn
@@ -273,15 +323,76 @@ class ArchModel:
         for i, slot in enumerate(stage_params.slots):
             if not rows["enabled"][i]:
                 continue
-            fn = self._branch(self.layer_types[int(rows["type_id"][i])])
-            if self.cfg.shared_attn_period and rows["shared"][i]:
-                fn = functools.partial(self._shared_then, fn)
-            if remat and torch.is_grad_enabled():
-                x = checkpoint(fn, slot, io, x, aux, use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                x = fn(slot, io, x, aux)
+            x = _remat(self._slot_fn(i, rows), remat, slot, io, x, aux)
         return x
+
+    def _slot_fn(self, i: int, rows, branch=None):
+        """Slot ``i``'s function (``branch``, else its kind's), behind the
+        shared block where the slot is flagged."""
+        fn = branch or self._branch(self.layer_types[int(rows["type_id"][i])])
+        if self.cfg.shared_attn_period and rows["shared"][i]:
+            fn = functools.partial(self._shared_then, fn)
+        return fn
+
+    def exchanges(self, rows, aux) -> bool:
+        """Whether this stage's forward exchanges tokens over its data
+        group: an enabled ``moe`` slot under an expert layout over more
+        than one data rank."""
+        if not sharded(aux.get("moe_layout", "none"),
+                       aux.get("data_size", 1)):
+            return False
+        return any(rows["enabled"][i] and self.layer_types[
+            int(rows["type_id"][i])] == "moe" for i in range(self.l_max))
+
+    def stage_phases(self, stage_params: StageParams, io: IOParams, aux,
+                     rows, remat: bool = True):
+        """``(phases, cuts)`` of an exchanging stage on states ``{"x":
+        ...}`` -> ``{"x": ...}`` (``models/phases.py``), its one
+        definition: F runs it with :func:`~repro_torch.models.phases.
+        run_forward`, B and W differentiate it.  A ``moe`` slot is
+        :func:`~repro_torch.models.moe.moe_phases`' three pieces, cut
+        before and after its experts, the first behind the slot's
+        shared block (if flagged) and attention half, the last followed
+        by the residual add; every other slot is one piece, as in
+        :meth:`stage_forward`.  Under autograd (``remat``) each piece is
+        checkpointed on its own.  A phase is the pieces between two
+        cuts."""
+        layout, data_size = aux["moe_layout"], aux["data_size"]
+
+        def remat_piece(fn):
+            return lambda st: _remat(fn, remat, st)
+
+        pieces: list[list] = [[]]
+        cuts: list = []
+        for i, slot in enumerate(stage_params.slots):
+            if not rows["enabled"][i]:
+                continue
+            if self.layer_types[int(rows["type_id"][i])] != "moe":
+                fn = self._slot_fn(i, rows)
+                pieces[-1].append(remat_piece(
+                    lambda st, fn=fn, slot=slot: {
+                        **st, "x": fn(slot, io, st["x"], aux)}))
+                continue
+            (dispatch, experts, combine), slot_cuts = moe_phases(
+                slot.moe, self.cfg, layout, data_size)
+            # the slot's branch up to its FFN: the shared block (if
+            # flagged), then the attention half
+            attn = self._slot_fn(i, rows, lambda sl, _io, x, a:
+                                 self._moe_attn(sl, x, a))
+
+            def enter(st, attn=attn, slot=slot, dispatch=dispatch):
+                x, h = attn(slot, io, st["x"], aux)
+                return dispatch({"x": x, "h": h})
+
+            def leave(st, combine=combine):
+                st = combine(st)
+                return {"x": st["x"] + st["h"]}
+
+            pieces[-1].append(remat_piece(enter))
+            pieces.append([remat_piece(experts)])
+            pieces.append([remat_piece(leave)])
+            cuts.extend(slot_cuts)
+        return [chain(p) for p in pieces], cuts
 
     def _shared_then(self, fn, slot, io: IOParams, x, aux):
         x = decoder_layer(io.shared_blk, x, aux["positions"], self.cfg)
@@ -463,6 +574,14 @@ class ArchModel:
             "n_active": n_active,
             "n_total": n_total,
         }
+
+
+def _remat(fn, remat: bool, *args):
+    """``fn(*args)``, checkpointed under autograd when ``remat``."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def build(cfg: ArchConfig, num_stages: int = 16) -> ArchModel:

@@ -22,8 +22,10 @@ whose dtype differs from the port parameter's raises instead of being cast
 (the float32 leaves of a bfloat16 model, e.g. a Mamba layer's ``a_log``,
 must stay float32 on both sides).
 
-The schedule-table executor's ranks each hold their stage's module and
-their own io module (:func:`rank_params_from_reference`), and its ZeRO-1
+The schedule-table executor's ranks each hold their stage's module (with
+their shard of the MoE layouts' experts) and their own io module
+(:func:`rank_params_from_reference`; back, the shards concatenated:
+:func:`rank_params_to_reference`), and its ZeRO-1
 optimizer state converts to the reference's global layout and back
 (:func:`zero1_state_to_reference`: per-leaf shards ``[S, dp_total * n]``,
 expert moments ``[S, l_max, ...]``).
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.build import ArchModel, IOParams, StageParams, tree_map
+from repro_torch.models.moe import take_shard
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -271,27 +274,74 @@ def rank_params_from_reference(model: ArchModel, mesh, stage_params_np: dict,
                                ) -> tuple[list[StageParams], list[IOParams]]:
     """Every rank's own stage module (its ``model`` index's stage) and io
     module holding the reference's stacked ``[S, ...]`` weights: each rank
-    gets its own copy, as each device holds its own."""
+    gets its own copy, as each device holds its own, and of a leaf sharded
+    over ``data`` (the MoE layouts' experts) its data index's shard."""
+    data = mesh.shape["data"]
     stage_params, io_params = [], []
-    for r in range(mesh.size):
-        (sp,), io = params_from_reference(
-            model, stage_params_np, io_params_np, device,
-            stages=[mesh.coords(r)["model"]])
-        stage_params.append(sp)
-        io_params.append(io)
+    with torch.no_grad():
+        for r in range(mesh.size):
+            c = mesh.coords(r)
+            s = c["model"]
+            sp = model.init_stage_params(s, seed=None, device=device,
+                                         data_size=data)
+            for name, p in sp.named_parameters():
+                a = _stage_leaf(stage_params_np, name, s)
+                dim = model.expert_shard_dim(name, data)
+                if dim is not None:
+                    a = take_shard(a, dim, data, c["data"])
+                _load(p, a, f"stage {s} {name}", device)
+            io = model.init_io_params(seed=None, device=device)
+            for name, p in io.named_parameters():
+                _load(p, _leaf(io_params_np, name), name, device)
+            stage_params.append(sp)
+            io_params.append(io)
     return stage_params, io_params
 
 
+def _gathered(model: ArchModel, mesh, stage_params, value):
+    """Per stage, ``value(p)`` of each parameter of its data-index-0 rank,
+    a leaf sharded over ``data`` concatenated over the data ranks."""
+    data = mesh.shape["data"]
+    out = []
+    for s in range(model.num_stages):
+        mods = [stage_params[mesh.rank_of(data=i, model=s)]
+                for i in range(data)]
+        params = [list(m.parameters()) for m in mods]
+        row = []
+        for j, (name, p) in enumerate(mods[0].named_parameters()):
+            dim = model.expert_shard_dim(name, data)
+            row.append(value(p) if dim is None else torch.cat(
+                [value(ps[j]) for ps in params], dim=dim))
+        out.append(row)
+    return out
+
+
+@torch.no_grad()
 def rank_params_to_reference(model: ArchModel, mesh, stage_params,
                              io_params) -> tuple[dict, dict]:
-    """The reference's numpy (stage, IO) trees of per-rank modules (the
-    ranks of data index 0; the data replicas hold the same values)."""
-    row0 = {mesh.coords(r)["model"]: r for r in range(mesh.size)
-            if all(v == 0 for a, v in mesh.coords(r).items()
-                   if a != "model")}
-    return params_to_reference(
-        model, [stage_params[row0[s]] for s in range(model.num_stages)],
-        io_params[row0[0]])
+    """The reference's numpy (stage, IO) trees of per-rank modules: the
+    ranks of data index 0 (the data replicas hold the same values), the
+    data ranks' shards of a data-sharded leaf concatenated."""
+    row0 = [stage_params[mesh.rank_of(model=s)]
+            for s in range(model.num_stages)]
+    return _to_reference(model, row0, io_params[0],
+                         _gathered(model, mesh, stage_params, lambda p: p),
+                         list(io_params[0].parameters()), _host)
+
+
+def rank_reference_layout(model: ArchModel, mesh, stage_params, io_params
+                          ) -> tuple[dict, dict]:
+    """:func:`reference_layout` of per-rank modules: the global shapes of
+    :func:`rank_params_to_reference`'s trees, as ``meta`` tensors."""
+    def meta(p):
+        return torch.empty(p.shape, dtype=p.dtype, device="meta")
+
+    row0 = [stage_params[mesh.rank_of(model=s)]
+            for s in range(model.num_stages)]
+    return _to_reference(model, row0, io_params[0],
+                         _gathered(model, mesh, stage_params, meta),
+                         [meta(p) for p in io_params[0].parameters()],
+                         lambda t: t)
 
 
 def _data_dim(spec: tuple) -> int | None:

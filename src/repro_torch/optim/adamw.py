@@ -197,15 +197,19 @@ def make_optimizer(model, mesh, partition: ParamPartition,
                 p.copy_(full[off:off + p.numel()].view(p.shape))
                 off += p.numel()
 
+        # slot by slot (elementwise: the same bits as the stacked leaf),
+        # so that the temporaries are one slot's, not the leaf's: four
+        # ranks of a full-width MoE mesh update their experts together
         for k, slots in _expert_items(stage_params):
             st = opt_state["experts"][k]
-            pn, mn, vn = _adamw_update(
-                opt_cfg, torch.stack(slots).float(), expert_grads[k],
-                st["m"].float(), st["v"].float(), step, lr, scale)
             for i, p in enumerate(slots):
-                p.copy_(pn[i].to(p.dtype))
-            st["m"] = mn.to(opt_cfg.expert_state_dtype)
-            st["v"] = vn.to(opt_cfg.expert_state_dtype)
+                pn, mn, vn = _adamw_update(
+                    opt_cfg, p.float(), expert_grads[k][i],
+                    st["m"][i].float(), st["v"][i].float(), step, lr, scale)
+                p.copy_(pn.to(p.dtype))
+                st["m"][i].copy_(mn)
+                st["v"][i].copy_(vn)
+                del pn, mn, vn
         return {"gnorm": gnorm, "lr": lr}
 
     return init_fn, update_fn

@@ -23,7 +23,12 @@ config (``encoder_layers``) carries ``ExecOptions.enc_len`` encoder frames
 after the decoder tokens of every row: buffers and messages are
 ``seq_len + enc_len`` long (the reference's ``_eff_seq``), stage 0 appends
 the batch's ``enc_embeds`` to the token embeddings, and the loss reads the
-decoder positions.
+decoder positions.  Under the MoE ``ep``/``tp`` layouts over more than
+one data rank a rank holds its shard of the routed experts: its stage
+callables exchange tokens over the ``data`` group (the reference's
+``axis_name="data"``) between the phases of the stage cut at its
+exchanges, in F and in B/W (``pipeline/stagefn.py``), and the experts'
+grads stay local.
 """
 from __future__ import annotations
 
@@ -99,7 +104,8 @@ def make_train_fn(model: ArchModel, table: ScheduleTable, mesh,
     fns = StageFns(model, StageFnOptions(
         mb_rows=mb_rows, seq_len=seq, ce_chunk=opts.ce_chunk,
         loss_scale=opts.loss_scale, data_size=mesh.shape["data"],
-        moe_layout=model.moe_layout, enc_len=opts.enc_len))
+        moe_layout=model.moe_layout, enc_len=opts.enc_len,
+        exchange=mesh.exchange_over("data")))
     eff_seq = fns.eff_seq
     flags = partition.stage_data_sharded
 
@@ -123,8 +129,20 @@ def make_train_fn(model: ArchModel, table: ScheduleTable, mesh,
         res_buf: list = [None] * K_res
         send_act = (zeros(), 0, False)
         send_grad = (zeros(), 0, False)
+        # a data-sharded (expert) leaf accumulates in one stacked [l_max,
+        # ...] tensor whose slots are views: it leaves as is, no copy
+        params = list(stage_params.parameters())
+        d_stage: list = [None] * len(params)
+        expert_acc: dict[str, torch.Tensor] = {}
+        for k, idx in partition.stage_slots.items():
+            if flags[k]:
+                acc = expert_acc[k] = torch.zeros(
+                    (len(idx),) + tuple(params[idx[0]].shape),
+                    dtype=opts.grad_dtype, device=device)
+                for j, i in enumerate(idx):
+                    d_stage[i] = acc[j]
         d_stage = [torch.zeros(p.shape, dtype=opts.grad_dtype, device=device)
-                   for p in stage_params.parameters()]
+                   if acc is None else acc for p, acc in zip(params, d_stage)]
         d_io = [torch.zeros(p.shape, dtype=opts.io_grad_dtype, device=device)
                 for p in io.parameters()]
         loss = torch.zeros((), dtype=torch.float32, device=device)
@@ -189,7 +207,7 @@ def make_train_fn(model: ArchModel, table: ScheduleTable, mesh,
         for k, slots in partition.stage_leaves(d_stage).items():
             if flags[k]:
                 # expert (data-sharded) grads stay local
-                expert_grads[k] = torch.stack(slots)
+                expert_grads[k] = expert_acc[k]
             else:
                 grad_shards[k] = rs(flat_leaf(slots))
         for k, leaf in partition.io_leaves(d_io).items():

@@ -29,8 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.ckpt.store import _leaves_with_path
 from repro_torch.models.build import ArchModel, IOParams, StageParams
-
-_MOE_EP_KEYS = ("wi", "wg", "wo")
+from repro_torch.models.moe import expert_shard_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,21 +86,18 @@ def partition_for(model: ArchModel, stage_params: StageParams,
     for key, path in _keyed(slots):
         names = path.split(".")
         # routed expert leaves live DIRECTLY under "moe" (shared experts
-        # are nested one level deeper: moe/shared<i>/wi)
-        expert = (len(names) >= 2 and names[-2] == "moe"
-                  and names[-1] in _MOE_EP_KEYS)
+        # are nested one level deeper: moe/shared<i>/wi); the layout
+        # shards the dim moe.expert_shard_dim names (E under ep, f under
+        # tp) of the leaf [S, l_max, E, d, f]
+        dim = (expert_shard_dim(names[-1], layout)
+               if len(names) >= 2 and names[-2] == "moe" else None)
         extra = [None] * (ndim[path] - 1)
-        if expert:
-            # leaf: [S, l_max, E, d, f]
-            if layout == "ep":
-                extra[1] = "data"  # shard the expert dim
-            elif layout == "tp":
-                # wi/wg: [.., E, d, f] shard f; wo: [.., E, f, d] shard f
-                extra[3 if names[-1] in ("wi", "wg") else 2] = "data"
+        if dim is not None:
+            extra[1 + dim] = "data"
         stage_keys.append(key)
         stage_slots[key] = tuple(i for _, i in sorted(slots[path]))
         specs[key] = ("model", *extra)
-        flags[key] = expert and layout != "none"
+        flags[key] = dim is not None
     io_names = {name: i for i, (name, _) in
                 enumerate(io_params.named_parameters())}
     io_keyed = _keyed(io_names)

@@ -11,14 +11,22 @@ the stage forward from that input and differentiate a scalar objective
 Gradients come from ``torch.autograd.grad(..., inputs=...)``, never
 ``.backward()``: the stage actors run on threads and share the IO
 parameters, so accumulating into ``.grad`` would race and make the fold
-order depend on thread timing.  Per-parameter gradients are tuples in
-``module.parameters()`` order; ``None`` marks a parameter the objective
-does not reach (the embedding at a middle stage, a disabled slot).
+order depend on thread timing.  A stage whose forward exchanges MoE
+tokens over its data group (``ArchModel.exchanges``: the ``ep``/``tp``
+layouts over more than one data rank, on the table runtime's mesh) takes
+the data group's collectives as ``StageFnOptions.exchange`` and runs
+cut at them (``ArchModel.stage_phases``, ``models/phases.py``): F runs
+the phases with the exchanges in between, and B, the dX-only B and W
+differentiate them phase by phase, so that every exchange and its
+transpose is called by the rank's thread, between autograd calls.
+Per-parameter gradients are tuples in ``module.parameters()`` order;
+``None`` marks a parameter the objective does not reach (the embedding at
+a middle stage, a disabled slot).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.taskgraph import Kind, Task
 from repro_torch.models.build import ArchModel
 from repro_torch.models.layers import rmsnorm
+from repro_torch.models.phases import chain, phased_grads, run_forward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +47,9 @@ class StageFnOptions:
     data_size: int = 1       # the mesh's data axis (the MoE layouts')
     moe_layout: str = "none"  # none | ep | tp (one device: none)
     enc_len: int = 0         # encoder frames per row (enc-dec archs)
+    #: ``exchange(name, x)`` over the data group (``Mesh.exchange_over``):
+    #: the MoE layouts' collectives when ``data_size > 1``
+    exchange: Callable | None = None
 
 
 def default_ce_chunk(cfg, requested: int = 0) -> int:
@@ -116,6 +128,10 @@ class StageFns:
         #: the stage activation's length: the decoder tokens, then (enc-dec
         #: archs) the encoder frames (the reference executor's ``_eff_seq``)
         self.eff_seq = opts.seq_len + (opts.enc_len if self.enc_dec else 0)
+        #: the stages whose forward exchanges MoE tokens (phased B and W)
+        layout = {"moe_layout": opts.moe_layout, "data_size": opts.data_size}
+        self.exchanging = [model.exchanges(model.rows(s), layout)
+                           for s in range(model.num_stages)]
 
     # ---- helpers -------------------------------------------------------
     def _aux(self, bm: dict) -> dict:
@@ -147,14 +163,32 @@ class StageFns:
             y = y[:, :self.opts.seq_len]
         return chunked_ce_sum(self.model, io, y, bm["labels"], self.ce_chunk)
 
-    def _stage_out(self, stage: int, sp_s, io, x, bm):
-        model = self.model
-        x0 = self._embed(io, bm).to(model.cfg.dtype) if stage == 0 else x
-        return model.stage_forward(sp_s, io, x0, self._aux(bm),
-                                   model.rows(stage))
+    def _stage_in(self, stage: int, io, x, bm):
+        """The stage's input: the embedding at stage 0, else ``x``."""
+        if stage == 0:
+            return self._embed(io, bm).to(self.model.cfg.dtype)
+        return x
 
-    def _objective(self, stage: int, sp_s, io, x, g_in, bm):
-        y = self._stage_out(stage, sp_s, io, x, bm)
+    def _exchange(self, stage: int):
+        if self.opts.exchange is None:
+            raise ValueError(f"stage {stage} exchanges MoE tokens over "
+                             f"{self.opts.data_size} data ranks: "
+                             f"StageFnOptions.exchange is not set")
+        return self.opts.exchange
+
+    def _stage_out(self, stage: int, sp_s, io, x, bm):
+        model, aux, rows = self.model, self._aux(bm), self.model.rows(stage)
+        x0 = self._stage_in(stage, io, x, bm)
+        if self.exchanging[stage]:
+            phases, cuts = model.stage_phases(sp_s, io, aux, rows,
+                                              remat=False)
+            return run_forward(phases, cuts, {"x": x0},
+                               self._exchange(stage))["x"]
+        return model.stage_forward(sp_s, io, x0, aux, rows)
+
+    def _objective_of(self, stage: int, io, y, g_in, bm):
+        """The scalar B differentiates from the stage's output ``y``: the
+        scaled loss at the last stage, else ``<y, g_in>``."""
         if stage == self.model.num_stages - 1:
             return self._loss(io, y, bm) * self.opts.loss_scale
         return torch.sum(y.float() * g_in.float())
@@ -162,16 +196,43 @@ class StageFns:
     def _grads(self, stage, sp_s, io, x, g_in, bm, *, want_x: bool,
                want_params: bool):
         """(dx, d_stage, d_io) of the objective for the requested inputs."""
+        if self.exchanging[stage]:
+            return self._phased_grads(stage, sp_s, io, x, g_in, bm,
+                                      want_x=want_x, want_params=want_params)
         xg = x.detach().requires_grad_() if (want_x and x is not None) else x
         sp_p = tuple(sp_s.parameters()) if want_params else ()
         io_p = tuple(io.parameters()) if want_params else ()
         inputs = sp_p + io_p + ((xg,) if want_x and x is not None else ())
         with torch.enable_grad():
-            obj = self._objective(stage, sp_s, io, xg, g_in, bm)
+            y = self._stage_out(stage, sp_s, io, xg, bm)
+            obj = self._objective_of(stage, io, y, g_in, bm)
             grads = torch.autograd.grad(obj, inputs, allow_unused=True)
         n = len(sp_p)
         dx = grads[-1] if want_x and x is not None else None
         return dx, grads[:n], grads[n:n + len(io_p)]
+
+    def _phased_grads(self, stage, sp_s, io, x, g_in, bm, *, want_x: bool,
+                      want_params: bool):
+        """:meth:`_grads` of an exchanging stage: its phases, stage 0's
+        embedding in the first and the objective in the last,
+        differentiated phase by phase with the transposed exchanges in
+        between (``models/phases.py``)."""
+        model = self.model
+        exchange = self._exchange(stage)
+        phases, cuts = model.stage_phases(sp_s, io, self._aux(bm),
+                                          model.rows(stage))
+        phases[0] = chain([lambda st: {"x": self._stage_in(
+            stage, io, st.get("x"), bm)}, phases[0]])
+        phases[-1] = chain([phases[-1], lambda st: {"obj": self._objective_of(
+            stage, io, st["x"], g_in, bm)}])
+        sp_p = tuple(sp_s.parameters()) if want_params else ()
+        io_p = tuple(io.parameters()) if want_params else ()
+        with_x = want_x and x is not None
+        gx, grads, _ = phased_grads(
+            phases, cuts, {} if x is None else {"x": x}, exchange,
+            sp_p + io_p, {"obj": None}, ("x",) if with_x else ())
+        n = len(sp_p)
+        return gx.get("x"), tuple(grads[:n]), tuple(grads[n:])
 
     # ---- public --------------------------------------------------------
     def forward(self, stage: int):

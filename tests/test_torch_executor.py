@@ -34,8 +34,17 @@ weights (carried across with ``models.convert``) and the same batches:
   ``ExecOptions(enc_len=24)`` encoder frames (so the cross-attention has
   sq != sk), float32, two steps under ``1f1b`` and ``zb``: loss, grad
   shards, params after 2 steps and the 2-step update, at the float32
-  yardsticks above.
+  yardsticks above;
+* the MoE layouts over the data ranks: reduced deepseek-moe-16b (the
+  dense layer and 3 MoE layers, one a stage) on the same 2 x 4 mesh, seq
+  16, float32, two steps under ``1f1b`` and ``zb``, with its 8 experts
+  (``tp``: every rank holds each expert's d_ff / 2 slice) and with 16
+  (``ep``: 8 whole experts a rank): loss, grad shards, every routed
+  expert's grad, params after 2 steps and the 2-step update, at the
+  float32 yardsticks; and a table checkpoint of the ``ep`` run holds the
+  reference's global shapes and restores every rank's shard bitwise.
 """
+import dataclasses
 import json
 import os
 import re
@@ -48,7 +57,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.ckpt.store import _leaves_with_path
+from repro_torch.ckpt.store import CheckpointStore, _leaves_with_path
 from repro_torch.configs import registry
 from repro_torch.core.taskgraph import PipelineSpec
 from repro_torch.data.synthetic import synth_batch
@@ -82,9 +91,13 @@ TOL = 1e-4
 #: the enc-dec case: reduced seamless with 4 layers (2 enc + 2 dec) and
 #: ENC_LEN encoder frames per row against SEQ decoder tokens
 ENC_DEC, ENC_DEC_LAYERS, ENC_LEN = "seamless-m4t-large-v2", 4, 24
+#: the MoE cases: reduced deepseek-moe-16b with 4 layers (the dense one and
+#: 3 MoE, one a stage), its 8 experts (``tp``) and 16 (``ep``)
+MOE, MOE_LAYERS = "deepseek-moe-16b", 4
+MOE_EXPERTS = {"tp": 8, "ep": 16}
 
 REFERENCE = r"""
-import contextlib, io as _io, json, os, sys
+import contextlib, dataclasses, io as _io, json, os, sys
 import numpy as np, jax, jax.numpy as jnp
 from repro.configs import registry
 from repro.core.taskgraph import PipelineSpec
@@ -100,6 +113,7 @@ from repro.pipeline.sharding import partition_for
 out, S, DATA, M, ROWS, SEQ, LAYERS = sys.argv[1], *map(int, sys.argv[2:8])
 table_args = json.loads(sys.argv[8])
 enc_dec, enc_dec_layers, enc_len = json.loads(sys.argv[9])
+moe_arch, moe_layers, moe_experts = json.loads(sys.argv[10])
 B = DATA * M * ROWS
 mesh = make_mesh(DATA, S)
 ks = jax.tree_util.keystr
@@ -109,8 +123,11 @@ def leaves(prefix, tree):
     return {prefix + ks(p): np.asarray(l.astype(jnp.float32))
             for p, l in jax.tree_util.tree_leaves_with_path(tree)}
 
-def run(arch, layers, modes, tag, enc_len=0):
+def run(arch, layers, modes, tag, enc_len=0, experts=None):
     cfg = registry.reduced_config(arch, num_layers=layers)
+    if experts is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=experts))
     model = build(cfg, num_stages=S)
     key = jax.random.key(0)
     sp = model.init_stage_params(key)
@@ -138,6 +155,8 @@ def run(arch, layers, modes, tag, enc_len=0):
                 if step == 0:
                     arrays.update({"grad" + k: np.asarray(
                         v.astype(jnp.float32)) for k, v in gs.items()})
+                    arrays.update({"egrad" + k: np.asarray(
+                        v.astype(jnp.float32)) for k, v in eg.items()})
                 p_sp, p_io, st, stats = update_fn(
                     p_sp, p_io, st, gs, eg, jnp.asarray(step, jnp.int32))
                 arrays[f"gnorm{step}"] = np.asarray(stats["gnorm"])
@@ -147,6 +166,13 @@ def run(arch, layers, modes, tag, enc_len=0):
 
 run("paper-gpt3-large", LAYERS, ("float32", "default"), "")
 run(enc_dec, enc_dec_layers, ("float32",), "enc_dec_", enc_len)
+for layout, experts in moe_experts.items():
+    assert build(dataclasses.replace(
+        registry.reduced_config(moe_arch, num_layers=moe_layers),
+        moe=dataclasses.replace(registry.reduced_config(moe_arch).moe,
+                                num_experts=experts)), S).moe_layout == layout
+    run(moe_arch, moe_layers, ("float32",), f"moe_{layout}_",
+        experts=experts)
 
 # the reference launcher's table loop, checkpointing at step 2
 sys.argv = ["train"] + table_args + ["--ckpt-dir", os.path.join(out, "ck"),
@@ -172,7 +198,8 @@ def reference(tmp_path_factory) -> Path:
         [sys.executable, "-c", REFERENCE, str(d),
          *map(str, (S, DATA, M, ROWS, SEQ, LAYERS)),
          json.dumps(TABLE_ARGS),
-         json.dumps([ENC_DEC, ENC_DEC_LAYERS, ENC_LEN])],
+         json.dumps([ENC_DEC, ENC_DEC_LAYERS, ENC_LEN]),
+         json.dumps([MOE, MOE_LAYERS, MOE_EXPERTS])],
         env=env, capture_output=True, text=True, timeout=600, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     return d
@@ -195,17 +222,27 @@ def _tree(arrays, prefix: str) -> dict:
 _PORT: dict = {}
 
 
-def _port_run(reference: Path, mode: str, sched: str,
-              enc_dec: bool = False) -> dict:
+def _config(tag: str):
+    """The reduced config of a case: ``""`` gpt3, ``"enc_dec_"`` seamless,
+    ``"moe_tp_"``/``"moe_ep_"`` deepseek-moe with MOE_EXPERTS experts."""
+    if tag == "enc_dec_":
+        return registry.reduced_config(ENC_DEC, ENC_DEC_LAYERS)
+    if tag.startswith("moe_"):
+        cfg = registry.reduced_config(MOE, MOE_LAYERS)
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=MOE_EXPERTS[tag[4:6]]))
+    return registry.reduced_config("paper-gpt3-large", LAYERS)
+
+
+def _port_run(reference: Path, mode: str, sched: str, tag: str = "") -> dict:
     """The port's two steps of ``mode``/``sched`` from the reference's
-    initial weights (cached per module): reduced paper-gpt3-large, or with
-    ``enc_dec`` the reduced seamless with ENC_LEN encoder frames."""
-    if (mode, sched, enc_dec) in _PORT:
-        return _PORT[mode, sched, enc_dec]
-    tag, enc_len = ("enc_dec_", ENC_LEN) if enc_dec else ("", 0)
+    initial weights (cached per module) of case ``tag`` (:func:`_config`;
+    the enc-dec case with ENC_LEN encoder frames)."""
+    if (mode, sched, tag) in _PORT:
+        return _PORT[mode, sched, tag]
+    enc_len = ENC_LEN if tag == "enc_dec_" else 0
     init = np.load(reference / f"{tag}init.npz")
-    cfg = (registry.reduced_config(ENC_DEC, ENC_DEC_LAYERS) if enc_dec
-           else registry.reduced_config("paper-gpt3-large", LAYERS))
+    cfg = _config(tag)
     model = build(cfg, num_stages=S)
     mesh = make_mesh(DATA, S, device="cpu")
     sps, ios = rank_params_from_reference(model, mesh, _tree(init, "sp"),
@@ -233,26 +270,28 @@ def _port_run(reference: Path, mode: str, sched: str,
                             for r in range(mesh.size)])
         res["losses"].append(float(out[0][0]["loss"]))
         if step == 0:
-            res["grads"] = zero1_state_to_reference(
+            g = zero1_state_to_reference(
                 model, mesh, part, [{"shards": {k: {"g": g} for k, g in
                                                 o[1].items()},
-                                     "experts": {}} for o in out])["shards"]
+                                     "experts": {k: {"g": g} for k, g in
+                                                 o[2].items()}}
+                                    for o in out])
+            res["grads"], res["expert_grads"] = g["shards"], g["experts"]
         stats = mesh.run(update_fn, [
             (sps[r], ios[r], state[r], out[r][1], out[r][2], step)
             for r in range(mesh.size)])
         res["gnorms"].append(float(stats[0]["gnorm"]))
     res["params"] = rank_params_to_reference(model, mesh, sps, ios)
-    _PORT[mode, sched, enc_dec] = res
+    _PORT[mode, sched, tag] = res
     return res
 
 
 CASES = [(m, s) for m in MODES for s in SCHEDULES]
 
 
-def _check_loss_and_gnorm(reference, mode, sched, enc_dec=False):
-    tag = "enc_dec_" if enc_dec else ""
+def _check_loss_and_gnorm(reference, mode, sched, tag=""):
     ref = np.load(reference / f"{tag}{mode}_{sched}.npz")
-    got = _port_run(reference, mode, sched, enc_dec)
+    got = _port_run(reference, mode, sched, tag)
     for step in range(2):
         want = float(ref[f"loss{step}"])
         assert abs(got["losses"][step] - want) <= TOL * abs(want), step
@@ -270,18 +309,21 @@ def _bf16_ulp(x: float) -> float:
     return 2.0 ** (np.floor(np.log2(x)) - 7)
 
 
-def _check_grad_shards(reference, mode, sched, enc_dec=False):
-    tag = "enc_dec_" if enc_dec else ""
+def _check_grad_shards(reference, mode, sched, tag=""):
     ref = np.load(reference / f"{tag}{mode}_{sched}.npz")
-    got = _port_run(reference, mode, sched, enc_dec)["grads"]
-    want_keys = [k[4:] for k in ref.files if k.startswith("grad")]
-    assert sorted(got) == sorted(want_keys)
-    for k in want_keys:
-        a, b = got[k]["g"].astype(np.float32), ref["grad" + k]
-        assert a.shape == b.shape, k  # [S, dp_total * n]
-        scale = float(np.abs(b).max())
-        tol = TOL * scale if mode == "float32" else _bf16_ulp(scale)
-        assert float(np.abs(a - b).max()) <= tol, k
+    run = _port_run(reference, mode, sched, tag)
+    for prefix, got in (("grad", run["grads"]),
+                        ("egrad", run["expert_grads"])):
+        want_keys = [k[len(prefix):] for k in ref.files
+                     if k.startswith(prefix)]
+        assert sorted(got) == sorted(want_keys), prefix
+        for k in want_keys:
+            a, b = got[k]["g"].astype(np.float32), ref[prefix + k]
+            # [S, dp_total * n]; an expert grad [S, l_max, ...] (global)
+            assert a.shape == b.shape, k
+            scale = float(np.abs(b).max())
+            tol = TOL * scale if mode == "float32" else _bf16_ulp(scale)
+            assert float(np.abs(a - b).max()) <= tol, k
 
 
 @pytest.mark.parametrize("mode,sched", CASES)
@@ -289,11 +331,10 @@ def test_grad_shards_match_reference(reference, mode, sched):
     _check_grad_shards(reference, mode, sched)
 
 
-def _check_params_after_two_steps(reference, mode, sched, enc_dec=False):
-    tag = "enc_dec_" if enc_dec else ""
+def _check_params_after_two_steps(reference, mode, sched, tag=""):
     ref = np.load(reference / f"{tag}{mode}_{sched}.npz")
     init = np.load(reference / f"{tag}init.npz")
-    sp, io = _port_run(reference, mode, sched, enc_dec)["params"]
+    sp, io = _port_run(reference, mode, sched, tag)["params"]
     n = 0
     for prefix, tree in (("sp", sp), ("io", io)):
         for k, v in _leaves_with_path(tree):
@@ -320,19 +361,95 @@ def test_params_after_two_steps_match_reference(reference, mode, sched):
 
 @pytest.mark.parametrize("sched", SCHEDULES)
 def test_enc_dec_loss_and_gnorm_match_reference(reference, sched):
-    _check_loss_and_gnorm(reference, "float32", sched, enc_dec=True)
+    _check_loss_and_gnorm(reference, "float32", sched, "enc_dec_")
 
 
 @pytest.mark.parametrize("sched", SCHEDULES)
 def test_enc_dec_grad_shards_match_reference(reference, sched):
-    _check_grad_shards(reference, "float32", sched, enc_dec=True)
+    _check_grad_shards(reference, "float32", sched, "enc_dec_")
 
 
 @pytest.mark.parametrize("sched", SCHEDULES)
 def test_enc_dec_params_after_two_steps_match_reference(reference, sched):
     """As the gpt3 cases: params within 1e-4, the update within 1e-3 of
     its norm in each leaf (the encoder's, the cross-attention's)."""
-    _check_params_after_two_steps(reference, "float32", sched, enc_dec=True)
+    _check_params_after_two_steps(reference, "float32", sched,
+                                  "enc_dec_")
+
+
+MOE_CASES = [(layout, s) for layout in sorted(MOE_EXPERTS)
+             for s in SCHEDULES]
+
+
+@pytest.mark.parametrize("layout,sched", MOE_CASES)
+def test_moe_loss_and_gnorm_match_reference(reference, layout, sched):
+    """deepseek-moe on 2 x 4 under ``tp`` (8 experts) and ``ep`` (16): the
+    exchanges over the data ranks against the reference's, float32."""
+    _check_loss_and_gnorm(reference, "float32", sched, f"moe_{layout}_")
+
+
+@pytest.mark.parametrize("layout,sched", MOE_CASES)
+def test_moe_grad_shards_match_reference(reference, layout, sched):
+    """Every ZeRO-1 grad shard and every routed expert's grad (each rank's
+    shard, concatenated over the data ranks)."""
+    _check_grad_shards(reference, "float32", sched, f"moe_{layout}_")
+
+
+@pytest.mark.parametrize("layout,sched", MOE_CASES)
+def test_moe_params_after_two_steps_match_reference(reference, layout,
+                                                    sched):
+    """The params, the experts' shards among them, within 1e-4 after 2
+    steps, and the 2-step update within 1e-3 of its norm."""
+    _check_params_after_two_steps(reference, "float32", sched,
+                                  f"moe_{layout}_")
+
+
+def test_moe_table_checkpoint_round_trips_the_expert_shards(reference,
+                                                            tmp_path):
+    """A table checkpoint of an ``ep`` run (16 experts, 8 a data rank)
+    holds the reference's global shapes (those of its own initial
+    weights) for every stage leaf and expert moment, and restoring it
+    into a fresh trainer gives every rank its shard, its replicated
+    leaves and its ZeRO-1 state back bitwise."""
+    argv = ["--runtime", "table", "--device", "cpu", "--arch", MOE,
+            "--devices", str(DATA * S), "--stages", str(S), "--layers",
+            str(MOE_LAYERS), "--microbatches", str(M), "--mb-rows",
+            str(ROWS), "--seq", str(SEQ), "--schedule", "1f1b"]
+    cfg = _config("moe_ep_")
+    run = train.train_table(train.parser().parse_args(
+        argv + ["--steps", "2", "--ckpt-dir", str(tmp_path),
+                "--ckpt-every", "2"]), cfg=cfg)
+    t = run.trainer
+    init = np.load(reference / "moe_ep_init.npz")
+    with np.load(tmp_path / "step_2" / "shard_0.npz") as saved:
+        n = 0
+        for k in init.files:
+            if not k.startswith("sp"):
+                continue
+            leaf = k[2:]
+            assert saved["['stage_params']" + leaf].shape == init[k].shape
+            if t["partition"].stage_data_sharded[leaf]:
+                for name in ("m", "v"):
+                    assert saved[f"['opt_state']['experts'][{leaf!r}]"
+                                 f"['{name}']"].shape == init[k].shape
+                n += 1
+        assert n == 3  # wi, wg, wo
+    fresh = train.build_trainer(
+        MOE, data=DATA, stages=S, layers=MOE_LAYERS, mb_rows=ROWS,
+        microbatches=M, seq=SEQ, schedule="1f1b", device="cpu", cfg=cfg)
+    train._table_restore(fresh, CheckpointStore(str(tmp_path)), 2)
+    for r in range(t["mesh"].size):
+        for mods in ("stage_params", "io_params"):
+            for a, b in zip(t[mods][r].parameters(),
+                            fresh[mods][r].parameters(), strict=True):
+                assert a.shape == b.shape and torch.equal(a, b), (r, mods)
+        for kind in ("shards", "experts"):
+            want = t["opt_state"][r][kind]
+            got = fresh["opt_state"][r][kind]
+            assert sorted(got) == sorted(want)
+            for k, st in want.items():
+                for name, v in st.items():
+                    assert torch.equal(got[k][name], v), (r, kind, k, name)
 
 
 def _step_2_checkpoint(reference: Path, tmp_path: Path) -> Path:

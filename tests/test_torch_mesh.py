@@ -172,3 +172,99 @@ def test_mismatched_collectives_and_rank_errors_surface_in_the_caller():
     # the mesh is reusable after a failed run
     assert [float(x) for x in _run(mesh, lambda r: mesh.psum(
         torch.ones(()), "model"))] == [2.0, 2.0]
+
+
+def test_all_to_all_and_stacked_all_gather_match_their_definitions():
+    """On a 2 x 4 mesh over ``model`` (groups of 4) and ``data`` (groups of
+    2): row ``i`` of ``all_to_all`` is member ``i``'s row at this rank's
+    group index; ``all_gather(tiled=False)`` stacks the members' tensors
+    in group-index order."""
+    mesh = make_mesh(2, 4, device="cpu")
+    rng = np.random.default_rng(2)
+    xs = {axis: [torch.from_numpy(rng.standard_normal(
+        (mesh.shape[axis], 3, 2)).astype(np.float32)) for _ in range(8)]
+        for axis in ("data", "model")}
+
+    def fn(r):
+        return {a: (mesh.all_to_all(xs[a][r], a),
+                    mesh.all_gather(xs[a][r][0], a, tiled=False))
+                for a in ("data", "model")}
+
+    out = _run(mesh, fn)
+    for r, got in enumerate(out):
+        c = mesh.coords(r)
+        for axis, (swapped, stacked) in got.items():
+            members = [mesh.rank_of(**{**c, axis: i})
+                       for i in range(mesh.shape[axis])]
+            want = torch.stack([xs[axis][m][c[axis]] for m in members])
+            assert torch.equal(swapped, want), (r, axis)
+            assert torch.equal(stacked, torch.stack(
+                [xs[axis][m][0] for m in members])), (r, axis)
+            assert swapped.data_ptr() != xs[axis][r].data_ptr()
+    with pytest.raises(ValueError, match="group size"):
+        _run(mesh, lambda r: mesh.all_to_all(torch.zeros(3, 2), "data"))
+
+
+@pytest.mark.parametrize("name", ["all_to_all", "all_gather",
+                                  "psum_scatter"])
+def test_each_exchange_and_its_transpose_are_adjoint(name):
+    """``<A x, y> == <x, A^T y>`` summed over the ranks, in float64, for
+    each exchange of a stage cut at its collectives and the transpose
+    ``models/phases.py`` calls for it (``data`` groups of 2 on 2 x 4)."""
+    from repro_torch.models.phases import TRANSPOSE
+
+    mesh = make_mesh(2, 4, device="cpu")
+    ex = mesh.exchange_over("data")
+    rng = np.random.default_rng(3)
+    shape = (2, 3, 5)
+    xs = [torch.from_numpy(rng.standard_normal(shape)) for _ in range(8)]
+    out_shape = {"all_to_all": shape, "all_gather": (2,) + shape,
+                 "psum_scatter": shape[1:]}[name]
+    ys = [torch.from_numpy(rng.standard_normal(out_shape))
+          for _ in range(8)]
+    got = _run(mesh, lambda r: (ex(name, xs[r]), ex(TRANSPOSE[name],
+                                                    ys[r])))
+    lhs = sum(float(torch.sum(a * y)) for (a, _), y in zip(got, ys))
+    rhs = sum(float(torch.sum(x * b)) for x, (_, b) in zip(xs, got))
+    assert got[0][0].shape == out_shape and got[0][1].shape == shape
+    assert abs(lhs - rhs) <= 1e-12 * max(abs(lhs), 1.0), (lhs, rhs)
+
+
+def _collective_in_backward(mesh, how: str):
+    """A rank program whose backward calls ``mesh.psum``: inside a
+    non-reentrant checkpoint's recompute, or in a Function.backward."""
+    from torch.utils.checkpoint import checkpoint
+
+    class Summed(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            return mesh.psum(g, "data")
+
+    def inner(x):
+        if torch._C._current_graph_task_id() != -1:  # the recompute
+            mesh.psum(x.detach(), "data")
+        return torch.sin(x)
+
+    def fn(r):
+        x = torch.ones(3, requires_grad=True)
+        y = (checkpoint(inner, x, use_reentrant=False) if how == "checkpoint"
+             else Summed.apply(x))
+        return torch.autograd.grad(y.sum(), x)
+
+    return fn
+
+
+@pytest.mark.parametrize("how", ["checkpoint", "function"])
+def test_a_collective_inside_a_backward_raises_not_hangs(how):
+    mesh = Mesh({"data": 2, "model": 1}, timeout=60.0)
+    t0 = time.monotonic()
+    with pytest.raises(CollectiveError, match="inside an autograd backward"):
+        _run(mesh, _collective_in_backward(mesh, how))
+    assert time.monotonic() - t0 < 30  # not the 60 s timeout
+    # outside a backward the same collective goes through
+    assert [float(x) for x in _run(mesh, lambda r: mesh.psum(
+        torch.ones(()), "data"))] == [2.0, 2.0]

@@ -65,19 +65,74 @@ def test_stage_layout_matches(arch, stages):
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "grok-1-314b"])
 def test_moe_layouts_over_devices_raise_naming_item_18(arch):
     """The reference's ``ep``/``tp`` layouts spread the experts over its
-    data axis; more than one device moves with the multi-device slice."""
+    data axis.  Over more than one data rank (ROADMAP item 18a, the table
+    runtime's mesh) a stage holds its rank's expert shard and exchanges
+    tokens through the data group's collectives: it runs only cut at its
+    exchanges (``ArchModel.stage_phases``, ``models/phases.py``), so its
+    plain forward, with or without autograd, and its decode raise."""
     cfg = registry.reduced_config(arch, num_layers=2)
     model = tbuild(cfg, 1)
-    sp = model.init_stage_params(0, seed=0, device="cpu")
+    sp = model.init_stage_params(0, seed=None, device="cpu", data_size=2)
     io = model.init_io_params(seed=0, device="cpu")
     x = torch.zeros((1, 4, cfg.d_model))
     aux = {"positions": torch.arange(4)[None], "data_size": 2,
            "moe_layout": model.moe_layout}
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 18"):
+    assert model.exchanges(model.rows(0), aux)
+    with torch.no_grad(), pytest.raises(ValueError, match="exchange"):
         model.stage_forward(sp, io, x, aux, model.rows(0))
     cache = model.init_stage_cache(1, 8, device="cpu")
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 18"):
+    with torch.no_grad(), pytest.raises(ValueError, match="exchange"):
         model.stage_decode(sp, io, x[:, :1], cache, 0, aux, model.rows(0))
+    with pytest.raises(ValueError, match="models/phases.py"):
+        model.stage_forward(sp, io, x, aux, model.rows(0))
+
+
+@pytest.mark.parametrize("layout", ["ep", "tp"])
+@pytest.mark.parametrize("shared_period", [0, 2])
+def test_stage_phases_are_the_stage_forward(layout, shared_period):
+    """An exchanging stage's one definition, ``ArchModel.stage_phases``,
+    over one data rank (its exchanges the identity) is the plain
+    ``stage_forward`` bit for bit, a slot's shared block included
+    (``shared_period`` 2 flags the first slot of each stage), and its
+    phased gradients are autograd's of ``stage_forward`` (float32, within
+    1e-5 of their max)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.phases import phased_grads, run_forward
+
+    cfg = dataclasses.replace(
+        registry.reduced_config("deepseek-moe-16b", num_layers=4),
+        shared_attn_period=shared_period)
+    model = tbuild(cfg, 2)
+    sp = model.init_stage_params(1, seed=0, device="cpu")
+    io = model.init_io_params(seed=0, device="cpu")
+    rows = model.rows(1)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 8, cfg.d_model), generator=gen)
+    g = torch.randn((2, 8, cfg.d_model), generator=gen)
+    aux = {"positions": torch.arange(8)[None].expand(2, 8), "data_size": 1,
+           "moe_layout": layout}
+    params = list(sp.parameters()) + list(io.parameters())
+    xg = x.clone().requires_grad_()
+    y = model.stage_forward(sp, io, xg, aux, rows)
+    want = torch.autograd.grad(y, [xg] + params, g, allow_unused=True)
+    mesh = make_mesh(1, 1, device="cpu")
+    ex = mesh.exchange_over("data")
+
+    def rank():
+        fwd = run_forward(*model.stage_phases(sp, io, aux, rows,
+                                              remat=False), {"x": x}, ex)
+        phases, cuts = model.stage_phases(sp, io, aux, rows)
+        gx, grads, _ = phased_grads(phases, cuts, {"x": x}, ex, params,
+                                    {"x": g}, ("x",))
+        return fwd["x"], [gx["x"], *grads]
+
+    got_y, got = mesh.run(rank, [()])[0]
+    assert torch.equal(got_y, y.detach())
+    for a, b in zip(got, want, strict=True):
+        assert (a is None) == (b is None)
+        if b is not None:
+            scale = max(float(b.abs().max()), 1e-30)
+            assert float((a - b).abs().max()) <= 1e-5 * scale
 
 
 def test_rope_matches_reference():

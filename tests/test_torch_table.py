@@ -16,7 +16,10 @@ what still raises, and the launcher.
   (and seamless-m4t-large-v2's enc-dec forward, whose actor callables
   take the table's encoder frames);
 * the enc-dec config gives the same losses under every schedule too;
-* deepseek-moe runs at ``data == 1`` and raises at ``data > 1``;
+* deepseek-moe over 2 data ranks, ``tp`` (8 experts) and ``ep`` (16),
+  against the actor runtime on the whole weights, its replicated leaves
+  bitwise equal across the data ranks and its reruns bitwise; a data
+  size that does not divide the experts raises;
 * ``main([... --runtime table ...])`` trains on the CPU, raises without
   CUDA unless the CPU is asked for, and stops on the actor-only flags;
   ``--runtime actor`` stops on the enc-dec config.
@@ -32,7 +35,11 @@ from repro_torch.configs import registry
 from repro_torch.core import HintKind, PipelineSpec
 from repro_torch.data.synthetic import synth_batch
 from repro_torch.launch import train
-from repro_torch.models.convert import zero1_state_to_reference
+from repro_torch.models.convert import (
+    params_from_reference,
+    rank_params_to_reference,
+    zero1_state_to_reference,
+)
 from repro_torch.pipeline.executor import shard_batch
 from repro_torch.pipeline.sharding import flat_leaf
 from repro_torch.pipeline.stagefn import (
@@ -52,19 +59,23 @@ ARGS = ["--runtime", "table", "--device", "cpu", "--arch",
         "8", "--microbatches", "4", "--seq", "16"]
 
 
-def _config(arch: str, layers: int):
+def _config(arch: str, layers: int, experts: int | None = None):
     cfg = registry.reduced_config(arch, layers)
     if arch == "zamba2-1.2b":  # the reduced hybrid config has no Mamba layer
         cfg = dataclasses.replace(cfg, layer_pattern=("mamba",) * layers)
+    if experts is not None:  # 16 and more: the ep layout
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=experts))
     return cfg
 
 
 def _trainer(schedule="1f1b", *, arch="paper-gpt3-large", layers=8, data=2,
-             stages=4, microbatches=4, mb_rows=2, seq=16, exec_options=None):
+             stages=4, microbatches=4, mb_rows=2, seq=16, exec_options=None,
+             experts=None):
     return train.build_trainer(
         arch, data=data, stages=stages, layers=layers, mb_rows=mb_rows,
         microbatches=microbatches, seq=seq, schedule=schedule, device="cpu",
-        cfg=_config(arch, layers), exec_options=exec_options)
+        cfg=_config(arch, layers, experts), exec_options=exec_options)
 
 
 def _batch(t, step: int) -> dict:
@@ -136,6 +147,31 @@ def test_replicas_stay_bitwise_equal_and_runs_repeat(schedule):
                     name]), (r, k, name)
 
 
+@pytest.mark.parametrize("schedule", ["1f1b", "zb"])
+def test_moe_replicated_leaves_stay_bitwise_equal_and_runs_repeat(schedule):
+    """``ep`` (16 experts) on 2 x 2: after every step the data ranks hold
+    bitwise equal replicated leaves and distinct expert shards (not
+    replicas), and a second run gives the same bits."""
+    def trainer():
+        return _trainer(schedule, arch="deepseek-moe-16b", layers=4,
+                        stages=2, microbatches=2, mb_rows=1, experts=16)
+
+    def check(t):
+        mesh, flags = t["mesh"], t["partition"].stage_data_sharded
+        for s in range(2):
+            a, b = (t["partition"].stage_leaves(t["stage_params"][
+                mesh.rank_of(data=i, model=s)].parameters())
+                for i in range(2))
+            for k in a:
+                same = all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
+                assert same != flags[k], (s, k)
+
+    first = trainer()
+    a = _steps(first, each=check)
+    b = _steps(trainer())
+    assert a == b and all(np.isfinite(a))
+
+
 def _actor_grads(t, microbatches: int, mb_rows: int):
     """Loss and per-stage / io grads (flat per leaf) of the port's actor
     runtime under the fixed 1f1b order, on the table trainer's weights and
@@ -143,8 +179,9 @@ def _actor_grads(t, microbatches: int, mb_rows: int):
     model, part = t["model"], t["partition"]
     mesh, seq = t["mesh"], t["seq"]
     S = model.num_stages
-    stages = [t["stage_params"][mesh.rank_of(model=s)] for s in range(S)]
-    io = t["io_params"][0]
+    # whole stage modules: the data ranks' expert shards concatenated
+    stages, io = params_from_reference(model, *rank_params_to_reference(
+        model, mesh, t["stage_params"], t["io_params"]), "cpu")
     tokens = microbatches * mb_rows * seq
     fns = StageFns(model, StageFnOptions(mb_rows=mb_rows, seq_len=seq,
                                          loss_scale=1.0 / tokens,
@@ -180,14 +217,32 @@ def _close(got: np.ndarray, want: torch.Tensor, what: str):
 
 FAMILIES = [("deepseek-7b", 2), ("zamba2-1.2b", 2), ("xlstm-350m", 2),
             ("qwen2-vl-2b", 2), ("gemma3-4b", 2), ("deepseek-moe-16b", 1),
-            ("seamless-m4t-large-v2", 2)]
+            ("deepseek-moe-16b", 2), ("seamless-m4t-large-v2", 2)]
 
 
 @pytest.mark.parametrize("arch,data", FAMILIES)
 def test_family_matches_the_actor_runtime(arch, data):
+    """deepseek-moe over 2 data ranks: the ``tp`` layout (8 experts)."""
+    _check_against_the_actor_runtime(arch, data)
+
+
+def test_moe_raises_over_more_than_one_data_rank():
+    """Over more than one data rank the MoE layouts train: the ``ep``
+    layout (16 experts, 8 a rank) on 2 x 2 matches the actor runtime on
+    the whole weights, loss and grads, every routed expert's among them;
+    what still raises is a data size that does not divide the experts."""
+    _check_against_the_actor_runtime("deepseek-moe-16b", 2, experts=16)
+    with pytest.raises(ValueError, match="16 does not divide by 3"):
+        _trainer(arch="deepseek-moe-16b", layers=4, data=3, stages=2,
+                 microbatches=2, mb_rows=1, experts=16)
+
+
+def _check_against_the_actor_runtime(arch, data, experts=None):
     S, M, rows, seq = 2, 2 * (3 - data), 1, 16
     t = _trainer(arch=arch, layers=4, data=data, stages=S, microbatches=M,
-                 mb_rows=rows, seq=seq, exec_options=F32)
+                 mb_rows=rows, seq=seq, exec_options=F32, experts=experts)
+    if experts is not None:
+        assert t["model"].moe_layout == "ep"
     mesh, model, part = t["mesh"], t["model"], t["partition"]
     shards = shard_batch(mesh, _batch(t, 0), t["batch_specs"])
     out = mesh.run(t["exec_fn"], [
@@ -200,6 +255,7 @@ def test_family_matches_the_actor_runtime(arch, data):
         {"shards": {k: {"g": g} for k, g in o[1].items()},
          "experts": {k: {"g": g} for k, g in o[2].items()}} for o in out])
     assert bool(got["experts"]) == (arch == "deepseek-moe-16b")
+    assert all(part.stage_data_sharded[k] for k in got["experts"])
     for s in range(S):
         for k, want in want_stage[s].items():
             g = (got["experts"][k]["g"][s].reshape(-1)
@@ -210,14 +266,6 @@ def test_family_matches_the_actor_runtime(arch, data):
         for s in range(S):  # io shards are the same on every model rank
             _close(got["shards"]["io:" + k]["g"][s][:want.numel()], want,
                    f"stage {s} io {k}")
-
-
-def test_moe_raises_over_more_than_one_data_rank():
-    t = _trainer(arch="deepseek-moe-16b", layers=4, stages=2, data=2,
-                 microbatches=2, mb_rows=1)
-    assert t["model"].moe_layout == "tp"  # 8 experts reduced (64: ep)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        t["train_step"](_batch(t, 0), 0)
 
 
 def test_enc_dec_trainer_takes_seq_encoder_frames():

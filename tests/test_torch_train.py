@@ -175,16 +175,45 @@ def test_runtime_flags_run_or_raise_the_reference_guard(case, tmp_path,
 
 
 def test_runtime_table_is_deferred_to_the_multi_device_slice():
-    """What of ``--runtime table`` waits for the multi-device slice (the
-    MoE collectives over more than one data rank, ROADMAP item 18a) raises
-    through the launcher, naming it; the rest trains
-    (tests/test_torch_table.py)."""
+    """What ``--runtime table`` once deferred to the multi-device slice,
+    the MoE exchanges over more than one data rank, trains through the
+    launcher: reduced deepseek-moe-16b (8 experts, the ``tp`` layout) on a
+    2 x 2 mesh, two steps with finite losses and gradient norms."""
     argv = ["--runtime", "table", "--arch", "deepseek-moe-16b", "--stages",
             "2", "--devices", "4", "--layers", "4", "--microbatches", "2",
-            "--mb-rows", "1", "--seq", "16", "--steps", "1", "--device",
+            "--mb-rows", "1", "--seq", "16", "--steps", "2", "--device",
             "cpu"]
-    with pytest.raises(NotImplementedError, match="item 18a"):
-        train.main(argv)
+    run = train.main(argv)
+    t = run.trainer
+    assert (t["mesh"].shape, t["model"].moe_layout) == (
+        {"data": 2, "model": 2}, "tp")
+    assert len(run.losses) == 2 and all(np.isfinite(run.losses))
+    assert all(np.isfinite(run.gnorms)) and all(g > 0 for g in run.gnorms)
+    # the experts' exchanges, every step: the stacked all_gather of the
+    # dispatch and its transpose's psum_scatter among the ZeRO-1 ones
+    assert len(run.collectives) == 2
+    assert all(c["all_gather"][0] > 0 and c["psum_scatter"][0] > 0
+               for c in run.collectives)
+
+
+@pytest.mark.parametrize("arch,data", [("paper-gpt3-large", 1),
+                                       ("deepseek-moe-16b", 2)])
+def test_actor_gnorm_is_the_table_clip_norm(arch, data):
+    """The actor path's recorded step-0 gradient norm is the table
+    runtime's clip norm on the same weights and global batch (reduced
+    configs, float32, within 1e-4): over one data rank, and over two with
+    deepseek-moe's ``tp`` experts differentiated cut at their exchanges."""
+    common = ["--arch", arch, "--stages", "2", "--layers", "4", "--mb-rows",
+              "1", "--seq", "16", "--steps", "1", "--device", "cpu"]
+    actor = train.main(["--runtime", "actor", "--schedule", "1f1b",
+                        "--microbatches", "4"] + common)
+    table = train.main(["--runtime", "table", "--schedule", "1f1b",
+                        "--devices", str(2 * data), "--microbatches",
+                        str(4 // data)] + common)
+    assert table.trainer["model"].moe_layout == (
+        "tp" if data > 1 else "none")
+    assert abs(actor.losses[0] - table.losses[0]) <= 1e-4 * table.losses[0]
+    assert abs(actor.gnorms[0] - table.gnorms[0]) <= 1e-4 * table.gnorms[0]
 
 
 def test_default_device_raises_without_cuda():
