@@ -40,7 +40,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    shard and every routed expert's grad compared; and the MoE ``tp``
    layout at the level of the layer (reduced deepseek-moe, 8 experts)
    over a 2-rank mesh, forward and phased backward, against the CPU mesh
-   and against ``layout="none"`` with the whole weights;
+   and against ``layout="none"`` with the whole weights; and serving on a
+   mesh of ranks (``phase_small_serve_mesh``): gemma3-4b cut to 6 layers
+   under ``sp_mode`` on 2 x 2 (the write and the windows crossing the
+   shard), deepseek-moe's dense and first MoE layer ``ep`` on 2 x 2 and the
+   reduced 8-expert deepseek-moe ``tp``, tokens, logits and last hidden
+   states against the CPU mesh;
 5. the main paths, each through ``repro_torch.launch.train_actor`` (actor
    training, full width, 4 stages, 8 microbatches of 1 x 2048 tokens,
    bf16): ``paper-gpt3-large`` hint bf for 3 steps, then ``--hint bfw
@@ -76,7 +81,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    counts are zeroed just before each run and read just after; every
    kernel of the path must have launched in each, a serve run exactly as
    often as its layers give, and one more decode pass after a serve run
-   must give finite logits;
+   must give finite logits; then serving on the in-process mesh
+   (``phase_serve_mesh_path``, ROADMAP 18c): ``paper-gpt3-large`` on 2 x 4
+   through ``launch.serve --devices 8`` (the 1 x 4 run's tokens and last
+   hidden states), seamless on 2 x 4 with seeded ``xk``/``xv`` against its
+   1 x 4 run (K3 from eight rank threads, a rerun bitwise),
+   ``deepseek-moe-16b`` cut to 4 layers ``ep`` on 2 x 2 (``all_to_all`` as
+   counted, a rerun bitwise) and ``gemma3-4b`` at full width and depth
+   under ``sp_mode`` on 2 x 4 with its 131,072-token cache (65,536 rows a
+   rank) against the unsharded 1 x 4 run from two positions, each run's
+   ms a step, peak memory, launches and collectives a step printed;
 6. right after the language main paths (``phase_runtime_flags``), the
    runtime flags on paper-gpt3-large full size: telemetry
    (``--metrics-report``, ``--explain``, ``--export-perfetto``, its step
@@ -1037,7 +1051,7 @@ def phase_small_serve():
     import torch
 
     from repro_torch.models.build import build
-    from repro_torch.pipeline.decode import DecodeOptions, make_serve_fn
+    from repro_torch.pipeline.decode import DecodeOptions, make_staircase_fn
 
     print("small-input serve, card (kernels) vs CPU (plain), float32:")
     cfg = dataclasses.replace(small_config("seamless-m4t-large-v2", 4),
@@ -1052,8 +1066,8 @@ def phase_small_serve():
     for c in caches_cpu:
         for name in ("xk", "xv"):
             c[name].copy_(torch.randn(c[name].shape, generator=g))
-    step = make_serve_fn(model, DecodeOptions(mb_rows=1, cache_len=64,
-                                              enc_len=1024), num_groups=2)
+    step = make_staircase_fn(model, DecodeOptions(mb_rows=1, cache_len=64,
+                                                  enc_len=1024), num_groups=2)
     first = torch.tensor([17, 250_000])
     out = {}
     for dev, sp, io, caches in (
@@ -1959,6 +1973,11 @@ def phase_multimodal_path():
     return runs
 
 
+#: the last hidden state of each SERVE_PATHS run's extra decode pass, which
+#: the serve runs on a mesh are held against
+SERVE_HIDDEN: dict = {}
+
+
 def phase_serve_path():
     """The serve runs of SERVE_PATHS through ``launch.serve``; each is
     checked for its exact launch counts, tokens inside the padded vocab,
@@ -2012,8 +2031,9 @@ def phase_serve_path():
                 (toks >= 0) & (toks < cfg.padded_vocab())).all():
             raise AssertionError(f"{arch} serve tokens of shape "
                                  f"{tuple(toks.shape)} or outside the vocab")
-        _, logits = decode_pass(model, server["sp"], server["io"],
+        h, logits = decode_pass(model, server["sp"], server["io"],
                                 server["caches"], toks[:, -1].cuda(), tokens)
+        SERVE_HIDDEN[arch] = h.cpu()
         if logits.shape != (args.batch, cfg.padded_vocab()) or not bool(
                 torch.isfinite(logits).all()):
             raise AssertionError(f"{arch}: logits of shape "
@@ -2022,6 +2042,607 @@ def phase_serve_path():
         del server
         torch.cuda.empty_cache()
     return runs
+
+
+# ---------------------------------------------------------------------------
+# serving on the in-process (data x model) mesh
+# ---------------------------------------------------------------------------
+def mesh_server(model, mesh, opts, groups, sp, io, caches) -> dict:
+    """A serve-mesh server (``launch.serve.build_server``'s keys) of
+    ``make_serve_fn``'s rank program over per-rank ``sp``, ``io``,
+    ``caches``."""
+    from repro_torch.pipeline.decode import make_serve_fn
+
+    fn, _, batch_specs = make_serve_fn(model, mesh, opts, groups)
+    return dict(model=model, cfg=model.cfg, mesh=mesh, sp=sp, io=io,
+                caches=caches, rank_fn=fn, batch_specs=batch_specs)
+
+
+def mesh_decode(server, first, pos0: int, steps: int, feed=None) -> dict:
+    """``steps`` greedy steps of a mesh server's rank program from position
+    ``pos0``, fed its own tokens or, from step 1 on, ``feed[t]``.  A step
+    is timed from the batch's sharding to the host copy of its tokens,
+    with the mesh's collectives and the kernels' launches counted inside
+    it; the step's float32 logits are recomputed after it from the last
+    stage's output (the operations the program took its argmax of),
+    outside the counts.  Under ``sp_mode`` (a replicated batch) every data
+    rank must give the same tokens and logits bit for bit."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServeRun
+    from repro_torch.pipeline.executor import shard_batch
+
+    mesh, model = server["mesh"], server["model"]
+    data, S = mesh.shape["data"], model.num_stages
+    replicated = next(iter(server["batch_specs"].values())) is None
+    heads = [mesh.rank_of(data=i, model=S - 1) for i in range(data)]
+    toks, seq = first.to(mesh.device), [first.tolist()]
+    logits, launches = [], {}
+    run = ServeRun(tokens=[], step_seconds=[])
+    for t in range(steps):
+        mesh.reset_counts()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        shards = shard_batch(mesh, {"tokens": toks}, server["batch_specs"])
+        res = mesh.run(server["rank_fn"], [
+            (server["sp"][r], server["io"][r], server["caches"][r],
+             shards[r], pos0 + t) for r in range(mesh.size)])
+        got = [res[r][0] for r in heads]
+        nxt = (got[0] if replicated else torch.cat(got)).tolist()
+        run.step_seconds.append(time.perf_counter() - t0)
+        run.collectives.append({k: (n, mesh.seconds[k]) for k, n
+                                in sorted(mesh.counts.items())})
+        for k, n in ops.launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        with torch.inference_mode():
+            lg = [model.head_logits(server["io"][r], res[r][1])[:, 0]
+                  .float() for r in heads]
+        hidden = [res[r][1] for r in heads]
+        if replicated:
+            if not all(torch.equal(a, got[0]) for a in got) or not all(
+                    torch.equal(a, lg[0]) for a in lg):
+                raise AssertionError("sp_mode: the data ranks' tokens or "
+                                     "logits differ")
+            lg, hidden = lg[:1], hidden[:1]
+        logits.append(torch.cat(lg).cpu())
+        seq.append(nxt)
+        toks = torch.tensor(nxt if feed is None else feed[t + 1],
+                            device=mesh.device)
+    ops.reset_launch_counts()
+    run.tokens = [list(row) for row in zip(*seq)]
+    return dict(run=run, tokens=seq, logits=torch.stack(logits),
+                hidden=torch.cat(hidden).cpu(), launches=launches)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1e-30)
+
+
+def seeded_kv(shape, below: int, dtype, device, seed: int) -> dict:
+    """The reference's stacked ``k``/``v`` leaves ``[S, l_max, b, seq,
+    hkv, hd]`` drawn from one seed below position ``below``, zero at and
+    past it (rows not yet written)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k in ("k", "v"):
+        t = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+        t[:, :, :, below:] = 0
+        out[k] = t
+    return out
+
+
+#: the small serve-mesh cases: (label, arch, layers (``cut_depth`` at full
+#: width, or ``reduced_config``), reduced, data, stages, batch, cache_len,
+#: sp_mode, pos0, tokens, window)
+SMALL_SERVE_MESH = [
+    ("gemma3-4b sp_mode", "gemma3-4b", 6, False, 2, 2, 1, 256, True, 124, 8,
+     16),
+    ("deepseek-moe ep", "deepseek-moe-16b", 2, False, 2, 2, 4, 64, False, 20,
+     4, None),
+    ("deepseek-moe tp (reduced, 8 experts)", "deepseek-moe-16b", 4, True, 2,
+     2, 4, 64, False, 20, 4, None)]
+
+
+def phase_small_serve_mesh():
+    """The serve rank program on a mesh of ranks on the card (kernels)
+    against the same mesh on the CPU (plain versions), float32, identical
+    seeded weights (seed 3) and caches (``k``/``v`` seeded below ``pos0``,
+    through ``convert.rank_caches_from_reference``): gemma3-4b at full
+    width cut to 6 layers (a global layer among them) under ``sp_mode`` on
+    2 x 2, window 16, cache 256 (128 rows a rank), 8 tokens from pos 124,
+    so the write and the windows cross the shard; deepseek-moe's dense
+    and first MoE layer, ``ep`` on 2 x 2, batch 4; the ``tp`` layout at
+    decode on the reduced 8-expert deepseek-moe.  Tokens equal, every
+    step's logits and the last hidden state within TOL_MM of their max.
+    The data replicas of a device share its read-only weights (but the
+    expert shards)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.build import build, tree_map
+    from repro_torch.models.convert import rank_caches_from_reference
+    from repro_torch.pipeline.decode import DecodeOptions, cache_specs
+
+    for (label, arch, layers, reduced, data, stages, batch, cache_len,
+         sp_mode, pos0, tokens, window) in SMALL_SERVE_MESH:
+        cfg = (registry.reduced_config(arch, layers) if reduced
+               else small_config(arch, layers))
+        if window:
+            cfg = dataclasses.replace(cfg, sliding_window=window)
+        model = build(cfg, stages)
+        opts = DecodeOptions(mb_rows=1, cache_len=cache_len,
+                             enc_len=max(1, cache_len // 4), sp_mode=sp_mode)
+        groups = 1 if sp_mode else batch // data
+        print(f"small serve mesh {label} {cfg.pattern} ({data} x {stages}, "
+              f"batch {batch}, cache {cache_len}, {tokens} tokens from pos "
+              f"{pos0}, layout {model.moe_layout}), card vs CPU mesh, "
+              f"float32:")
+        full = [model.init_stage_params(s, seed=3, device="cpu")
+                for s in range(stages)]
+        io_cpu = model.init_io_params(seed=3, device="cpu")
+        one = model.init_layer_cache(batch, cache_len, opts.enc_len,
+                                     device="cpu")
+        fill = tree_map(lambda t: torch.zeros(
+            (stages, model.l_max) + tuple(t.shape), dtype=t.dtype), one)
+        fill.update(seeded_kv(fill["k"].shape, pos0, cfg.dtype, "cpu", 13))
+        shard = model.moe_layout != "none" and data > 1
+        first = torch.arange(batch) * 4099 % cfg.vocab_size + 11
+        out = {}
+        for dev in ("cpu", "cuda"):
+            mesh = make_mesh(data, stages, device=dev)
+            io = io_cpu if dev == "cpu" else copy.deepcopy(io_cpu).to(dev)
+            mods = {}
+            sp = []
+            for r in range(mesh.size):
+                c = mesh.coords(r)
+                key = (c["model"], c["data"] if shard else 0)
+                if key not in mods:
+                    m = (model.shard_stage_params(full[c["model"]], data,
+                                                  c["data"]) if shard
+                         else full[c["model"]])
+                    mods[key] = m if dev == "cpu" else copy.deepcopy(m).to(
+                        dev)
+                sp.append(mods[key])
+            caches = rank_caches_from_reference(
+                model, mesh, fill, cache_specs(model, opts), dev)
+            server = mesh_server(model, mesh, opts, groups, sp,
+                                 [io] * mesh.size, caches)
+            t0 = time.perf_counter()
+            out[dev] = mesh_decode(server, first, pos0, tokens)
+            print(f"  {dev}: tokens {out[dev]['tokens'][1:]}  "
+                  f"{time.perf_counter() - t0:.1f} s  collectives a step "
+                  f"{ {k: n for k, (n, _) in out[dev]['run'].collectives[-1].items()} }")
+            del server, caches, sp, mods
+        if out["cuda"]["tokens"] != out["cpu"]["tokens"]:
+            raise AssertionError(f"{label}: tokens differ, card "
+                                 f"{out['cuda']['tokens']} vs CPU "
+                                 f"{out['cpu']['tokens']}")
+        errs = [rel_err(out["cuda"][k], out["cpu"][k])
+                for k in ("logits", "hidden")]
+        if not all(math.isfinite(e) and e <= TOL_MM for e in errs):
+            raise AssertionError(f"{label}: logits / last hidden state "
+                                 f"{errs} of their max from the CPU's")
+        print(f"  tokens equal; every step's logits and the last hidden "
+              f"state within {errs[0]:.3e} and {errs[1]:.3e} of their max "
+              f"(tolerance {TOL_MM:g})  ok")
+        torch.cuda.empty_cache()
+
+
+def attention_layers(model) -> int:
+    from repro_torch.models.build import ATTN_KINDS
+
+    return sum(model.layer_types[t] in ATTN_KINDS
+               for t in model.type_ids.ravel() if t >= 0)
+
+
+def report_mesh_run(label, run, launches, per_step, mem, smi) -> None:
+    """Print a mesh serve run's ms per step after the first, peak memory,
+    launches per step against ``per_step`` (which they must equal) and
+    collectives per step with their host seconds."""
+    steps = len(run.step_seconds)
+    rest = run.step_seconds[1:]
+    got = {k: launches.get(k, 0) / steps for k in per_step}
+    print(f"  {label}: first step {run.step_seconds[0]:.3f} s, then "
+          f"{sum(rest) / len(rest) * 1e3:.2f} ms/step; peak "
+          f"{mem / 2**30:.2f} GiB; launches a step {got} (from the code "
+          f"{per_step}); collectives a step (calls, host s summed over "
+          f"ranks) {run.collectives[-1] if run.collectives else {}}  "
+          f"[{smi}]")
+    for k, n in per_step.items():
+        if launches.get(k, 0) != n * steps:
+            raise AssertionError(f"{label}: {k} launched {launches.get(k)}"
+                                 f" times in {steps} steps, the code "
+                                 f"gives {n} a step")
+
+
+#: gemma3-4b's published context (arXiv:2503.19786), split over two data
+#: ranks; the two starting positions of its sequence-parallel runs
+GEMMA_CACHE = 131072
+GEMMA_POSITIONS = (98304, 65532)
+MESH_TOKENS = 8
+#: float32, the sequence-parallel run against the unsharded one
+TOL_SP_F32 = 1e-4
+
+
+def phase_serve_mesh_path(runs):
+    """Serving on the in-process mesh at full size, bf16 (ROADMAP 18c):
+    paper-gpt3-large on 2 x 4 through ``launch.serve``
+    (``serve_mesh_gpt3``), seamless on 2 x 4 with seeded ``xk``/``xv``
+    (``serve_mesh_seamless``), deepseek-moe cut to 4 layers ``ep`` on
+    2 x 2 (``serve_mesh_moe``) and gemma3-4b under ``sp_mode`` with its
+    128k cache (``serve_mesh_gemma``)."""
+    smi = card()
+    out = serve_mesh_gpt3(runs, smi)
+    out.update(serve_mesh_seamless(smi))
+    out.update(serve_mesh_moe(smi))
+    out.update(serve_mesh_gemma(smi))
+    return out
+
+
+def launcher_serve(args, server):
+    """``launch.serve.serve`` on a built server, between zeroed and read
+    launch counts and peak memory: (run, launches, peak bytes)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve.serve(args, server=server)
+    counts = ops.launch_counts()
+    return run, counts, torch.cuda.max_memory_allocated()
+
+
+def serve_mesh_gpt3(runs, smi) -> dict:
+    """paper-gpt3-large full size on 2 x 4 (batch 8, 4 one-row groups a
+    data rank, cache 4096) through ``launch.serve --devices 8``: the 1 x 4
+    serve run's tokens, launches as counted, and one more decode pass per
+    data rank whose last hidden state is compared with the 1 x 4 run's
+    (printed: bitwise is expected, each row its own one-row group in both
+    runs)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    arch = "paper-gpt3-large"
+    argv = (["--arch", arch, "--tokens", str(MESH_TOKENS), "--devices", "8"]
+            + SERVE_ARGS)
+    print(f"serve mesh {arch}: python -m repro_torch.launch.serve "
+          + " ".join(argv))
+    args = serve.parser().parse_args(argv)
+    server = serve.build_server(arch, stages=4, layers=None, batch=8,
+                                cache_len=4096, reduced=False, device="cuda",
+                                seed=args.seed, data=2)
+    run, counts, mem = launcher_serve(args, server)
+    model, mesh = server["model"], server["mesh"]
+    report_mesh_run(f"{arch} 2 x 4", run, counts, serve_launches(model, 8),
+                    mem, smi)
+    want = runs[arch, "serve"][0].tokens
+    if run.tokens != want:
+        raise AssertionError(f"{arch} 2 x 4 tokens {run.tokens} differ "
+                             f"from the 1 x 4 run's {want}")
+    hs = []
+    for i in range(2):
+        ranks = [mesh.rank_of(data=i, model=s) for s in range(4)]
+        toks = torch.tensor([row[-1] for row in run.tokens[4 * i:4 * i + 4]],
+                            device="cuda")
+        hs.append(decode_pass(model, [server["sp"][r] for r in ranks],
+                              server["io"][ranks[0]],
+                              [server["caches"][r] for r in ranks], toks,
+                              MESH_TOKENS)[0])
+    h, ref = torch.cat(hs).cpu(), SERVE_HIDDEN[arch]
+    err = float((h.float() - ref.float()).abs().max())
+    if not math.isfinite(err):
+        raise AssertionError(f"{arch}: non-finite hidden state")
+    print(f"  tokens equal to the 1 x 4 run's; one more pass's last hidden "
+          f"state against the 1 x 4 run's: "
+          + ("bit for bit" if torch.equal(h, ref) else f"max |diff| {err}"))
+    return {(arch, "serve 2x4"): (run, counts, mem)}
+
+
+def serve_mesh_seamless(smi) -> dict:
+    """seamless-m4t-large-v2 full size (batch 8, cache 4096, enc_len 1024)
+    on 1 x 4 (the staircase) and twice on 2 x 4 through ``launch.serve``,
+    each from the same caches (``xk``/``xv`` drawn from one seed, through
+    ``convert``): the 2 x 4 run's tokens the 1 x 4 run's, its rerun's
+    tokens and written cache rows bit for bit, K2 and K3 launches as
+    counted, and K3's per-stream arrival counters back at 0 after eight
+    rank threads launched it on the one default stream."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_decode
+    from repro_torch.launch import serve
+    from repro_torch.models.build import tree_map
+    from repro_torch.models.convert import (
+        cache_from_reference,
+        rank_caches_from_reference,
+    )
+    from repro_torch.pipeline.decode import DecodeOptions, cache_specs
+
+    arch = "seamless-m4t-large-v2"
+    cfg = registry.get_arch(arch)
+    args = serve.parser().parse_args(
+        ["--arch", arch, "--tokens", str(MESH_TOKENS)] + SERVE_ARGS)
+    enc = 4096 // 4
+    opts = DecodeOptions(mb_rows=1, cache_len=4096, enc_len=enc)
+    runs, out = [], {}
+    for data in (1, 2, 2):
+        server = serve.build_server(arch, stages=4, layers=None, batch=8,
+                                    cache_len=4096, reduced=False,
+                                    device="cuda", seed=args.seed, data=data)
+        model = server["model"]
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        lead, kv = (4, model.l_max, 8), (cfg.num_kv_heads,
+                                         cfg.resolved_head_dim)
+        fill = {k: torch.zeros((1,), dtype=cfg.dtype, device="cuda").expand(
+            lead + (4096,) + kv) for k in ("k", "v")}
+        fill.update({k: torch.randn(lead + (enc,) + kv, generator=gen,
+                                    dtype=cfg.dtype, device="cuda")
+                     for k in ("xk", "xv")})
+        server["caches"] = (
+            cache_from_reference(model, fill, "cuda") if data == 1 else
+            rank_caches_from_reference(model, server["mesh"], fill,
+                                       cache_specs(model, opts), "cuda"))
+        del fill
+        run, counts, mem = launcher_serve(args, server)
+        again = " again" if len(runs) == 2 else ""
+        report_mesh_run(f"{arch} {data} x 4{again}", run, counts,
+                        serve_launches(model, 8), mem, smi)
+        busy = [k for k, t in flash_decode._COUNTERS.items()
+                if int(t.abs().sum())]
+        if busy:
+            raise AssertionError(f"K3 arrival counters not back at 0: "
+                                 f"{busy}")
+        runs.append((run, [tree_map(
+            lambda c: c[:, :, :MESH_TOKENS + 1].clone(),
+            {k: c[k] for k in ("k", "v")}) for c in server["caches"]]))
+        if data == 2:
+            out[arch, f"serve 2x4{again}"] = (run, counts, mem)
+        del server
+        torch.cuda.empty_cache()
+    (one, _), (a, wa), (b, wb) = runs
+    if a.tokens != one.tokens:
+        raise AssertionError(f"{arch} 2 x 4 tokens {a.tokens} differ from "
+                             f"the 1 x 4 run's {one.tokens}")
+    if b.tokens != a.tokens or not all(
+            torch.equal(x[k], y[k]) for x, y in zip(wa, wb)
+            for k in ("k", "v")):
+        raise AssertionError(f"{arch} 2 x 4: the rerun differs")
+    print(f"  {arch}: 2 x 4 tokens equal to the 1 x 4 run's; the rerun's "
+          f"tokens and written cache rows bit for bit; K3's arrival "
+          f"counters at 0")
+    return out
+
+
+def serve_mesh_moe(smi) -> dict:
+    """deepseek-moe-16b at full width cut to 4 layers, ``ep`` on 2 x 2
+    (batch 8, 4 one-row groups a data rank, cache 4096, 8 tokens), twice
+    from zeroed caches: finite logits, the rerun's tokens and logits bit
+    for bit, ``all_to_all`` a step as counted (2 per MoE layer and group
+    on each data rank) and K2 launches as counted."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models.build import tree_map
+
+    arch = "deepseek-moe-16b"
+    cfg = registry.cut_depth(arch, 4)
+    server = serve.build_server(arch, stages=2, layers=None, batch=8,
+                                cache_len=4096, reduced=False, device="cuda",
+                                seed=0, cfg=cfg, data=2)
+    model = server["model"]
+    first = torch.randint(0, cfg.vocab_size, (8,),
+                          generator=torch.Generator().manual_seed(7))
+    n_moe = sum(model.layer_types[t] == "moe"
+                for t in model.type_ids.ravel() if t >= 0)
+    a2a = 2 * n_moe * 8  # F 2 per MoE layer and one-row group, every row
+    moe = []
+    for _ in range(2):
+        for c in server["caches"]:
+            tree_map(lambda t: t.zero_(), c)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        moe.append(mesh_decode(server, first, 0, MESH_TOKENS))
+        mem = torch.cuda.max_memory_allocated()
+        report_mesh_run(f"{arch} (4 layers) ep 2 x 2", moe[-1]["run"],
+                        moe[-1]["launches"], serve_launches(model, 8), mem,
+                        smi)
+        for c in moe[-1]["run"].collectives:
+            if c.get("all_to_all", (0,))[0] != a2a:
+                raise AssertionError(f"{arch}: all_to_all a step {c}, the "
+                                     f"code gives {a2a}")
+    a, b = moe
+    if not torch.isfinite(a["logits"]).all():
+        raise AssertionError(f"{arch}: non-finite logits")
+    if a["tokens"] != b["tokens"] or not torch.equal(a["logits"],
+                                                      b["logits"]):
+        raise AssertionError(f"{arch}: the rerun differs")
+    print(f"  {arch}: finite logits; all_to_all {a2a} a step as counted; "
+          f"the rerun's tokens and logits bit for bit")
+    del server
+    torch.cuda.empty_cache()
+    return {(arch, "serve ep 2x2"): (a["run"], a["launches"], mem)}
+
+
+def gemma_runs(cfg, stages: int, plans, tokens: int, smi):
+    """gemma3-4b serve runs at cache GEMMA_CACHE, batch 1, from each of
+    GEMMA_POSITIONS, one mesh per plan ``(label, data, sp_mode, reruns)``,
+    every one from the same seeded cache (``k``/``v`` drawn below the
+    first position through ``convert.rank_caches_from_reference``; rows at
+    and past a run's position zeroed before it).  The first plan is the
+    unsharded run; the others are fed its tokens.  Each run's launches
+    and collectives a step must be as counted; ``reruns`` runs the last
+    position again, which must give the same bits.  Returns the runs by
+    (label, pos) and the entries for ``main``'s record."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import rank_params
+    from repro_torch.models.build import build
+    from repro_torch.models.convert import rank_caches_from_reference
+    from repro_torch.pipeline.decode import DecodeOptions, cache_specs
+
+    model = build(cfg, stages)
+    L = GEMMA_CACHE
+    fill = seeded_kv((stages, model.l_max, 1, L, cfg.num_kv_heads,
+                      cfg.resolved_head_dim), max(GEMMA_POSITIONS),
+                     cfg.dtype, "cuda", 21)
+    first = torch.tensor([1234 % cfg.vocab_size])
+    layers, per_rank = attention_layers(model), serve_launches(model, 1)
+    res, out = {}, {}
+    for k, (label, data, sp_mode, reruns) in enumerate(plans):
+        opts = DecodeOptions(mb_rows=1, cache_len=L, sp_mode=sp_mode)
+        mesh = make_mesh(data, stages, device="cuda")
+        caches = rank_caches_from_reference(model, mesh, fill,
+                                            cache_specs(model, opts), "cuda")
+        if k == len(plans) - 1:
+            del fill
+            torch.cuda.empty_cache()
+        sp, io = rank_params(model, mesh, seed=0, device="cuda")
+        server = mesh_server(model, mesh, opts, 1, sp, io, caches)
+        shard = L // data
+        want = {"ppermute": mesh.size * stages, "psum": mesh.size}
+        if sp_mode:
+            want.update(pmax=data * layers,
+                        psum=2 * data * layers + mesh.size)
+        for i, pos in enumerate(GEMMA_POSITIONS
+                                + GEMMA_POSITIONS[-1:] * reruns):
+            for r, c in enumerate(caches):  # rows at and past pos unwritten
+                start = max(0, pos - mesh.coords(r)["data"] * shard)
+                for name in ("k", "v"):
+                    c[name][:, :, start:] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            feed = None if k == 0 else res[plans[0][0], pos]["tokens"]
+            run = mesh_decode(server, first, pos, tokens, feed=feed)
+            mem = torch.cuda.max_memory_allocated()
+            again = i >= len(GEMMA_POSITIONS)
+            name = (f"gemma3-4b {cfg.num_layers} layers {label} "
+                    f"{data} x {stages} from pos {pos}"
+                    + (" again" if again else ""))
+            report_mesh_run(name, run["run"], run["launches"],
+                            {n: v * data for n, v in per_rank.items()},
+                            mem, smi)
+            for c in run["run"].collectives:
+                got = {n: c.get(n, (0,))[0] for n in want}
+                if got != want:
+                    raise AssertionError(f"{name}: collectives {got}, "
+                                         f"the code gives {want}")
+            if again:
+                last = res[label, pos]
+                if run["tokens"] != last["tokens"] or not torch.equal(
+                        run["logits"], last["logits"]):
+                    raise AssertionError(f"{name}: the rerun differs")
+                print(f"  {name}: bit for bit the first run")
+                continue
+            res[label, pos] = run
+            out["gemma3-4b", f"serve {cfg.num_layers}L {label} "
+                f"{data}x{stages} pos {pos}"] = (run["run"],
+                                                run["launches"], mem)
+        del server, caches, sp, io
+        torch.cuda.empty_cache()
+    return res, out
+
+
+def logit_errors(run, ref) -> list[float]:
+    """Each step's max |logits - ref logits| over max |ref logits|."""
+    return [float((a - b).abs().max()) / float(b.abs().max())
+            for a, b in zip(run["logits"], ref["logits"])]
+
+
+def serve_mesh_gemma(smi) -> dict:
+    """gemma3-4b under ``sp_mode`` with its 131,072-token cache split over
+    two data ranks, against the unsharded run (one data rank, the plain
+    ``decode_attention``), each from pos 98,304 (rank 0's shard all
+    valid, on the local layers fully masked) and 65,532 (the write and
+    the windows cross the ranks), every run from the same seeded cache:
+
+    * float32, full width cut to 6 layers (5 local, 1 global) on 2 stages,
+      4 tokens: tokens equal and every step's logits within TOL_SP_F32 of
+      their max (the sequence-parallel decode's arithmetic at the full
+      context);
+    * bf16 at full width and depth (34 layers, 4 stages), 8 tokens: the
+      unsharded run, the same cache whole on one data rank through the
+      sequence-parallel formula (``sp_mode`` on 1 x 4: the floor that a
+      reformulation of the attention alone moves bf16 logits by, through
+      34 layers of seeded weights), and ``sp_mode`` on 2 x 4, rerun once.
+      The 2 x 4 run's logits within twice the floor's largest error of
+      the unsharded run's; its greedy tokens equal but where the
+      unsharded run's top two logits lie within that step's error
+      (printed); the rerun bit for bit; ``pmax``/``psum`` a step as
+      counted (3 a layer and data rank, and the tokens' psum over
+      ``model`` on every rank)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+
+    print(f"serve mesh gemma3-4b, batch 1, cache {GEMMA_CACHE}: unsharded "
+          f"vs sp_mode over 2 data ranks, from each of {GEMMA_POSITIONS}:")
+    out = {}
+    g6 = dataclasses.replace(registry.cut_depth("gemma3-4b", 6),
+                             dtype=torch.float32)
+    res, o = gemma_runs(g6, 2, [("unsharded", 1, False, 0),
+                                ("sp_mode", 2, True, 0)], 4, smi)
+    out.update(o)
+    for pos in GEMMA_POSITIONS:
+        un, sh = res["unsharded", pos], res["sp_mode", pos]
+        errs = logit_errors(sh, un)
+        print(f"  float32 6 layers from pos {pos}: tokens {un['tokens'][1:]}"
+              f" (unsharded) {sh['tokens'][1:]} (sp_mode); logits within "
+              f"{max(errs):.3e} of their max (tolerance {TOL_SP_F32:g})")
+        if sh["tokens"] != un["tokens"] or not all(
+                math.isfinite(e) and e <= TOL_SP_F32 for e in errs):
+            raise AssertionError(f"gemma3-4b float32 pos {pos}: sp_mode "
+                                 f"departs from the unsharded run")
+    g = registry.get_arch("gemma3-4b")
+    res, o = gemma_runs(g, 4,
+                        [("unsharded", 1, False, 0),
+                         ("one shard", 1, True, 0),
+                         ("sp_mode", 2, True, 1)], MESH_TOKENS, smi)
+    out.update(o)
+    floor = max(e for pos in GEMMA_POSITIONS for e in logit_errors(
+        res["one shard", pos], res["unsharded", pos]))
+    for pos in GEMMA_POSITIONS:
+        un, sh = res["unsharded", pos], res["sp_mode", pos]
+        errs = logit_errors(sh, un)
+        print(f"  bf16 {g.num_layers} layers from pos {pos}: tokens "
+              f"{un['tokens'][1:]} "
+              f"(unsharded) {sh['tokens'][1:]} (sp_mode); logits "
+              f"{['%.2e' % e for e in errs]} of their max (the one-shard "
+              f"floor at most {floor:.3e}, tolerance twice it)")
+        if not all(math.isfinite(e) and e <= max(2 * floor, TOL_SP_F32)
+                   for e in errs):
+            raise AssertionError(f"gemma3-4b bf16 pos {pos}: logits beyond "
+                                 f"twice the one-shard floor {floor:.3e}")
+        for t, e in enumerate(errs):
+            ta, tb = sh["tokens"][t + 1], un["tokens"][t + 1]
+            if ta == tb:
+                continue
+            b = un["logits"][t, 0]
+            top = torch.topk(b, 2).values
+            gap = float(top[0] - top[1]) / float(b.abs().max())
+            print(f"    step {t}: token {ta} vs unsharded {tb}, whose top "
+                  f"two logits are {gap:.3e} of the max apart (the step's "
+                  f"error {e:.3e})")
+            if gap > e:
+                raise AssertionError(f"gemma3-4b bf16 pos {pos} step {t}: "
+                                     f"tokens differ off a near tie")
+    return out
 
 
 def main(argv=None) -> int:
@@ -2069,6 +2690,7 @@ def main(argv=None) -> int:
     phase_small_multimodal()
     phase_small_serve()
     phase_small_table()
+    phase_small_serve_mesh()
     runs = phase_main_path()
     torch.cuda.empty_cache()
     runs.update(phase_table_path(runs))
@@ -2077,6 +2699,7 @@ def main(argv=None) -> int:
     runs.update(phase_runtime_flags())
     runs.update(phase_multimodal_path())
     runs.update(phase_serve_path())
+    runs.update(phase_serve_mesh_path(runs))
     kernels = []
     for name, rec in record.items():
         by_path = {f"{arch} {run}": c[name] for (arch, run), (_, c, _)
@@ -2086,7 +2709,7 @@ def main(argv=None) -> int:
     out = {"kernels": kernels}
     summary = {**out, "card": smi,
                "main_path": {f"{arch} {name}": {
-                   **({"tokens": r.tokens} if name == "serve"
+                   **({"tokens": r.tokens} if name.startswith("serve")
                       else {"losses": r.losses}),
                    "step_seconds": r.step_seconds,
                    "launches": c, "peak_memory_bytes": mem}

@@ -6,8 +6,8 @@ as one ``shard_map`` over a device mesh; the port runs it on a
 each running the same rank-local program (the ``shard_map`` body).  A rank
 reads its coordinates with :meth:`Mesh.axis_index` and talks to the ranks
 of an axis group through the collectives, whose names and semantics are
-JAX's: ``ppermute``, ``psum``, ``psum_scatter`` (``tiled=False``, over
-dimension 0), ``all_gather`` (``tiled=True`` by default, or stacked along a
+JAX's: ``ppermute``, ``psum``, ``pmax``, ``psum_scatter`` (``tiled=False``,
+over dimension 0), ``all_gather`` (``tiled=True`` by default, or stacked along a
 new dimension 0) and ``all_to_all`` (``split_axis=0, concat_axis=0,
 tiled=False``) over one axis or a tuple of them.
 
@@ -18,7 +18,8 @@ What the mesh guarantees:
   is a copy as on its own device (a wrong all-gather shows up as replicas
   that differ);
 * every reduction sums in ascending rank order, with no atomics, so a run
-  is bitwise reproducible;
+  is bitwise reproducible (``pmax``, an elementwise max, is exact in any
+  order);
 * all ranks issue onto the one default CUDA stream of ``device``: a
   collective returns only after every rank of its group has enqueued its
   reads of the others' tensors (a second rendezvous), so an owner's later
@@ -48,6 +49,7 @@ process-group backend can implement the same methods, one process per rank.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import threading
 import time
@@ -246,6 +248,10 @@ class Mesh:
         """Sum over the group, in ascending rank order."""
         return self._collective("psum", axes, x, _sum_in_rank_order)
 
+    def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Elementwise maximum over the group (exact in any order)."""
+        return self._collective("pmax", axes, x, _elementwise_max)
+
     def psum_scatter(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Row ``group_index`` of the group's sum of ``x``, whose first
         dimension is the group's size, summed in ascending rank order (JAX's
@@ -307,6 +313,14 @@ class Mesh:
 
         return exchange
 
+    def axis_group(self, axes) -> "AxisGroup":
+        """The calling rank's view of its group over ``axes``: its index,
+        the group's size, ``psum`` and ``pmax`` (what a layer that the
+        reference gives an ``axis_name`` needs; inside :meth:`run`)."""
+        axes = self._axes(axes)
+        return AxisGroup(self, axes, self.group_index(axes),
+                         self.group_size(axes))
+
     def reset_counts(self) -> None:
         with self._lock:
             self.counts, self.seconds = {}, {}
@@ -363,6 +377,33 @@ class Mesh:
         for g in groups:
             with g.cond:
                 g.cond.notify_all()
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """One rank's group over ``axes`` (:meth:`Mesh.axis_group`): the
+    counterpart of a JAX ``axis_name`` inside ``shard_map``, whose
+    ``axis_index`` is :attr:`index`."""
+
+    mesh: Mesh
+    axes: tuple[str, ...]
+    index: int
+    size: int
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.psum(x, self.axes)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.pmax(x, self.axes)
+
+
+def _elementwise_max(got: dict[int, torch.Tensor]) -> torch.Tensor:
+    """A new tensor: the values' elementwise maximum."""
+    ranks = sorted(got)
+    acc = got[ranks[0]].clone()
+    for r in ranks[1:]:
+        torch.maximum(acc, got[r], out=acc)
+    return acc
 
 
 def _sum_in_rank_order(got: dict[int, torch.Tensor]) -> torch.Tensor:

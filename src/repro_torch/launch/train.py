@@ -522,6 +522,36 @@ def train_actor(args, *, cfg=None, init_params=None,
 # ---------------------------------------------------------------------------
 # schedule-table executor + ZeRO-1 (--runtime table)
 # ---------------------------------------------------------------------------
+def rank_params(model, mesh, *, seed: int, device) -> tuple[list, list]:
+    """Every rank's own stage module (its ``model`` index's stage) and io
+    module from the seeded init, each data replica a copy.  Under an MoE
+    expert layout over more than one data rank each stage is drawn whole,
+    as on one rank, and each rank keeps its shard of the routed experts
+    (``ArchModel.shard_stage_params``)."""
+    data = mesh.shape["data"]
+    shard = model.moe_layout != "none" and data > 1
+    stage_params: list = [None] * mesh.size
+    sp0 = []
+    for s in range(model.num_stages):
+        full = model.init_stage_params(s, seed=seed, device=device)
+        if not shard:
+            sp0.append(full)
+            continue
+        # each data rank's shard, then the whole stage is freed
+        for i in range(data):
+            stage_params[mesh.rank_of(data=i, model=s)] = (
+                model.shard_stage_params(full, data, i))
+        del full
+    io0 = model.init_io_params(seed=seed, device=device)
+    io_params = []
+    for r in range(mesh.size):
+        s, first = mesh.coords(r)["model"], mesh.coords(r)["data"] == 0
+        if not shard:
+            stage_params[r] = sp0[s] if first else copy.deepcopy(sp0[s])
+        io_params.append(io0 if r == 0 else copy.deepcopy(io0))
+    return stage_params, io_params
+
+
 def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
                   mb_rows: int, microbatches: int, seq: int,
                   schedule: str = "rrfp", reduced: bool = True,
@@ -557,26 +587,8 @@ def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
     model = build(cfg, num_stages=stages)
     mesh = make_mesh(data, stages, device=device)
     if init_params is None:
-        shard = model.moe_layout != "none" and data > 1
-        stage_params: list = [None] * mesh.size
-        sp0 = []
-        for s in range(stages):
-            full = model.init_stage_params(s, seed=0, device=device)
-            if not shard:
-                sp0.append(full)
-                continue
-            # each data rank's shard, then the whole stage is freed
-            for i in range(data):
-                stage_params[mesh.rank_of(data=i, model=s)] = (
-                    model.shard_stage_params(full, data, i))
-            del full
-        io0 = model.init_io_params(seed=0, device=device)
-        io_params = []
-        for r in range(mesh.size):
-            s, first = mesh.coords(r)["model"], mesh.coords(r)["data"] == 0
-            if not shard:
-                stage_params[r] = sp0[s] if first else copy.deepcopy(sp0[s])
-            io_params.append(io0 if r == 0 else copy.deepcopy(io0))
+        stage_params, io_params = rank_params(model, mesh, seed=0,
+                                              device=device)
     else:
         stage_params, io_params = init_params(model, mesh, device)
     partition = partition_for(model, stage_params[0], io_params[0])

@@ -27,7 +27,11 @@ backward, runs cut at its exchanges (:meth:`ArchModel.stage_phases`,
 
 Decode caches are trees of nested dicts, one per stage, each leaf stacked
 ``[l_max, batch, ...]`` (the reference's ``[S, l_max, ...]`` tree holds one
-per stage), and ``stage_decode`` updates them in place.
+per stage), and ``stage_decode`` updates them in place.  At decode (no
+autograd) an MoE layer under an expert layout over more than one data rank
+runs its phases with ``aux["exchange"]`` in between, and the attention
+kinds take ``aux["sp_axis"]``, the rank's group over a sequence-sharded
+cache (``pipeline/decode.py``).
 """
 from __future__ import annotations
 
@@ -68,7 +72,7 @@ from repro_torch.models.moe import (
     sharded,
     take_shard,
 )
-from repro_torch.models.phases import chain
+from repro_torch.models.phases import chain, run_forward
 from repro_torch.models.ssm import (
     MambaLayer,
     init_mamba_cache,
@@ -446,7 +450,7 @@ class ArchModel:
             def attn_like(slot: LayerSlot, io, x, cache, pos, aux):
                 return decoder_layer_decode(
                     slot.blk, x, cache, pos, cfg, window=window,
-                    axis_name=aux.get("sp_axis"))[0]
+                    axis=aux.get("sp_axis"))[0]
 
             return attn_like
         if kind == "enc":
@@ -478,6 +482,21 @@ class ArchModel:
                 x = x + decode_attention_block(slot.attn, h, cache, pos,
                                                cfg)[0]
                 h = rmsnorm(x, slot.ln2, cfg.norm_eps)
+                layout = aux.get("moe_layout", "none")
+                data_size = aux.get("data_size", 1)
+                if kind == "moe" and sharded(layout, data_size):
+                    if aux.get("exchange") is None:
+                        raise ValueError(
+                            f"MoE layout {layout!r} over {data_size} data "
+                            f"ranks exchanges tokens at decode: "
+                            f"aux['exchange'] (the data group's, "
+                            f"Mesh.exchange_over) is not set")
+                    # no autograd at decode: the phases run with the data
+                    # group's exchanges in between
+                    phases, cuts = moe_phases(slot.moe, cfg, layout,
+                                              data_size)
+                    return x + run_forward(phases, cuts, {"h": h},
+                                           aux["exchange"])["h"]
                 return x + self._moe_ffn(slot, kind, h, aux)
 
             return moe_fn

@@ -15,7 +15,8 @@ DAG's per-stage trees load the same way, one module per stage
 ``s`` is ``params[s]['layers'][i]['attn']['wq']``).  Decode caches map the
 same way: the reference's stacked ``[num_stages, l_max, ...]`` cache tree
 becomes one tree per stage with ``[l_max, ...]`` leaves
-(:func:`cache_from_reference`).  Arrays arrive as
+(:func:`cache_from_reference`; each rank's shard of it on a serve
+mesh: :func:`rank_caches_from_reference` and back).  Arrays arrive as
 numpy (bfloat16 arrays as numpy's ``bfloat16`` extension dtype) or as CPU
 tensors (a checkpoint restored into :func:`reference_layout`).  A leaf
 whose dtype differs from the port parameter's raises instead of being cast
@@ -217,8 +218,9 @@ def reference_layout(model: ArchModel, stage_params, io_params,
 def cache_from_reference(model: ArchModel, cache_np: dict, device
                          ) -> list[dict]:
     """The port's per-stage decode caches holding the reference's stacked
-    ``[num_stages, l_max, batch, ...]`` cache tree (keys, dtypes and shapes
-    must be the port's ``init_stage_cache``'s; a mismatch raises)."""
+    ``[num_stages, l_max, batch, ...]`` cache tree, numpy arrays or tensors
+    (keys, dtypes and shapes must be the port's ``init_stage_cache``'s; a
+    mismatch raises)."""
     # leaves are [S, l_max, batch, ...]; only k/v (attention) carry the
     # sequence (xLSTM's recurrent states have none) and xk/xv enc_len
     leaves: list = []
@@ -232,10 +234,71 @@ def cache_from_reference(model: ArchModel, cache_np: dict, device
         if set(cache) != set(cache_np):
             raise TypeError(f"reference cache keys {sorted(cache_np)} are "
                             f"not the port's {sorted(cache)}")
-        tree_map(lambda t, a: _load(t, np.asarray(a)[s], f"stage {s} cache",
-                                    device), cache, cache_np)
+        tree_map(lambda t, a: _load(
+            t, a[s] if isinstance(a, torch.Tensor) else np.asarray(a)[s],
+            f"stage {s} cache", device), cache, cache_np)
         stages.append(cache)
     return stages
+
+
+def rank_caches_from_reference(model: ArchModel, mesh, cache: dict,
+                               specs: dict, device) -> list[dict]:
+    """Every rank's own decode cache holding its shard of the reference's
+    stacked ``[num_stages, l_max, batch, ...]`` cache tree (numpy arrays or
+    tensors) under ``specs`` (``pipeline.decode.cache_specs``: a leaf's
+    ``(dim, axes)`` in a rank's ``[l_max, ...]`` leaf, or None for a copy
+    on every data rank): rank ``r`` holds stage ``coords(r)["model"]`` and,
+    of a sharded leaf, part ``group_index(axes, r)``.  Keys, dtypes and
+    shapes must be ``init_stage_cache``'s (a mismatch raises)."""
+    out = []
+    for r in range(mesh.size):
+        s = mesh.coords(r)["model"]
+
+        def shard(a, spec):
+            a = a[s] if isinstance(a, torch.Tensor) else np.asarray(a)[s]
+            if spec is None:
+                return a
+            dim, axes = spec
+            return take_shard(a, dim, mesh.group_size(axes),
+                              mesh.group_index(axes, r))
+
+        part = tree_map(shard, cache, specs)
+        kv = (part["k"].shape[2] if "k" in part else 0,
+              part["xk"].shape[2] if "xk" in part else 0)
+        leaves: list = []
+        tree_map(leaves.append, part)
+        local = model.init_stage_cache(leaves[0].shape[1], *kv,
+                                       device=device)
+        if set(local) != set(part):
+            raise TypeError(f"reference cache keys {sorted(part)} are not "
+                            f"the port's {sorted(local)}")
+        with torch.no_grad():
+            tree_map(lambda t, a: _load(t, a, f"rank {r} cache", device),
+                     local, part)
+        out.append(local)
+    return out
+
+
+@torch.no_grad()
+def rank_caches_to_reference(model: ArchModel, mesh, caches: list[dict],
+                             specs: dict) -> dict:
+    """The reference's stacked numpy cache tree of per-rank caches (the
+    inverse of :func:`rank_caches_from_reference`): a sharded leaf's parts
+    concatenated in group-index order, a replicated one from the stage's
+    rank of data index 0."""
+    def stage_leaf(s, spec, *leaves):
+        if spec is None:
+            return leaves[mesh.rank_of(model=s)]
+        dim, axes = spec
+        ranks = sorted((r for r in range(mesh.size)
+                        if mesh.coords(r)["model"] == s),
+                       key=lambda r: mesh.group_index(axes, r))
+        return torch.cat([leaves[r] for r in ranks], dim=dim)
+
+    return tree_map(
+        lambda spec, *leaves: np.stack([
+            _host(stage_leaf(s, spec, *leaves))
+            for s in range(model.num_stages)]), specs, *caches)
 
 
 def multimodal_params_from_reference(model, stage_params_np: list[dict],

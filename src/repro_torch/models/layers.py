@@ -6,7 +6,9 @@ RMSNorm -> FFN; the enc-dec decoder's cross-attention (``attention_block``
 with ``kv_src``: K1 with ``sq != sk``, non-causal); and its decode
 half: one token against a KV cache (``decode_attention_block``,
 ``decoder_layer_decode``; the plain ``decode_attention``, as the reference's
-self-attention decode reaches no kernel).  Caches are updated in place
+self-attention decode reaches no kernel; over a cache sharded on its
+sequence, the distributed flash-decode, plain PyTorch like the
+reference's).  Caches are updated in place
 where the reference returns new ones.  Parameters are
 ``nn.Module``s whose weights keep the reference's ``[in, out]`` layout
 (``x @ w``), so reference parameters load by path
@@ -23,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import decode_ref
+from repro_torch.kernels.ref import NEG_INF, decode_ref
 from repro_torch.models.common import ArchConfig
 
 
@@ -221,8 +223,7 @@ decode_attention = decode_ref
 
 
 def decode_attention_block(p: Attention, x, cache: dict, pos: int,
-                           cfg: ArchConfig, window: int = 0,
-                           axis_name: str | None = None):
+                           cfg: ArchConfig, window: int = 0, axis=None):
     """One-token attention with cache update.
 
     x: [b, 1, d]; cache: dict(k=[b, S, hkv, hd], v=[b, S, hkv, hd]); pos:
@@ -230,28 +231,56 @@ def decode_attention_block(p: Attention, x, cache: dict, pos: int,
     in place (the reference returns updated copies); returns
     ``(out [b, 1, d], cache)``.  An M-RoPE config decodes with plain RoPE
     at ``pos``, as the reference's ``decode_attention_block`` does.
+
+    ``axis`` (the reference's ``axis_name``: a
+    :class:`~repro_torch.launch.mesh.AxisGroup`) shards the cache's S dim
+    over a group of ranks, ``shard`` rows a rank from ``axis.index *
+    shard`` (sequence parallelism for long_500k): only the rank holding
+    row ``pos`` writes it, each rank scores its shard in float32, and the
+    partial softmax is combined with ``pmax`` and ``psum`` (the distributed
+    flash-decode; plain PyTorch, as the reference's is XLA code).
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "sequence-parallel decode (a cache sharded over devices) moves "
-            "with a later multi-device slice (ROADMAP.md queue 1, item 18c)")
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = attention_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
-    cache["k"][:, pos] = k_new[:, 0]
-    cache["v"][:, pos] = v_new[:, 0]
-    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
-    o = decode_attention(q, cache["k"], cache["v"], lengths, window=window)
-    return o.reshape(b, 1, -1) @ p.wo, cache
+    if axis is None:
+        cache["k"][:, pos] = k_new[:, 0]
+        cache["v"][:, pos] = v_new[:, 0]
+        lengths = torch.full((b,), pos + 1, dtype=torch.int32,
+                             device=x.device)
+        o = decode_attention(q, cache["k"], cache["v"], lengths,
+                             window=window)
+        return o.reshape(b, 1, -1) @ p.wo, cache
+    k_cache, v_cache = cache["k"], cache["v"]
+    shard, hkv, hd = k_cache.shape[1:]
+    local = pos - axis.index * shard
+    if 0 <= local < shard:  # the reference's where(in_range, ...)
+        k_cache[:, local] = k_new[:, 0]
+        v_cache[:, local] = v_new[:, 0]
+    qf = (q.float() * hd**-0.5).reshape(b, hkv, -1, hd)
+    s = torch.einsum("bkgd,bjkd->bkgj", qf, k_cache.float())
+    kpos = axis.index * shard + torch.arange(shard, device=x.device)
+    mask = kpos <= pos
+    if window > 0:
+        mask &= kpos > pos - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    # a shard with no key in range (a local layer once pos has left it)
+    # has m_loc = NEG_INF and adds exp(NEG_INF - m_glob) = 0 to both sums
+    m_glob = axis.pmax(s.amax(-1))
+    p_ = torch.exp(s - m_glob[..., None])
+    num = axis.psum(torch.einsum("bkgj,bjkd->bkgd", p_, v_cache.float()))
+    den = axis.psum(p_.sum(-1))
+    o = (num / torch.clamp(den[..., None], min=1e-30)).reshape(b, 1, -1)
+    return o.to(x.dtype) @ p.wo, cache
 
 
 def decoder_layer_decode(p: DecoderLayer, x, cache: dict, pos: int,
-                         cfg: ArchConfig, window: int = 0, axis_name=None):
+                         cfg: ArchConfig, window: int = 0, axis=None):
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     a, cache = decode_attention_block(p.attn, h, cache, pos, cfg,
-                                      window=window, axis_name=axis_name)
+                                      window=window, axis=axis)
     x = x + a
     h = rmsnorm(x, p.ln2, cfg.norm_eps)
     return x + ffn_block(p.ffn, h, cfg.act), cache

@@ -252,12 +252,17 @@ def make_batch_specs(model: ArchModel, opts: ExecOptions
 
 def shard_batch(mesh, batch: dict, specs: dict) -> list[dict]:
     """Each rank's copy of its data shard of a global batch (rows split
-    evenly over the spec's axes, in group-index order)."""
+    evenly over the spec's axes, in group-index order; a spec None copies
+    the whole entry)."""
     out = []
     for r in range(mesh.size):
         shard = {}
-        for k, (dim, axes) in specs.items():
+        for k, spec in specs.items():
             v = batch[k]
+            if spec is None:
+                shard[k] = v.clone()
+                continue
+            dim, axes = spec
             n = v.shape[dim] // mesh.group_size(axes)
             i = mesh.group_index(axes, r)
             shard[k] = v.narrow(dim, i * n, n).clone()

@@ -149,16 +149,6 @@ def test_decode_attention_block_matches_reference_and_writes_one_row():
                               cache[name][:, untouched])
 
 
-def test_sequence_parallel_decode_waits_for_the_multi_device_slice():
-    _, cfg_t = configs("deepseek-7b", 2)
-    layer = layers.DecoderLayer(cfg_t, torch.Generator().manual_seed(0),
-                                "cpu")
-    cache = {"k": torch.zeros(1, 4, 4, 16), "v": torch.zeros(1, 4, 4, 16)}
-    with pytest.raises(NotImplementedError, match="item 18"):
-        layers.decode_attention_block(layer.attn, torch.zeros(1, 1, 64),
-                                      cache, 0, cfg_t, axis_name="data")
-
-
 def test_cross_attention_has_no_biases():
     cfg = registry.reduced_config("qwen1.5-32b", 2)
     assert cfg.qkv_bias

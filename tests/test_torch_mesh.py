@@ -70,6 +70,65 @@ def test_psum_sums_the_axis_group_in_rank_order(axes):
     assert len({o.data_ptr() for o in out}) == 8  # each rank its own copy
 
 
+@pytest.mark.parametrize("axes", ["model", "data", ("data", "model")])
+def test_pmax_is_the_groups_elementwise_max_on_every_rank(axes):
+    mesh = make_mesh(2, 4, device="cpu")
+    rng = np.random.default_rng(2)
+    vals = [torch.from_numpy(rng.standard_normal((3, 5)).astype(np.float32))
+            for _ in range(8)]
+    vals[3][0, 0] = -1e30  # NEG_INF of a fully masked shard
+    out = _run(mesh, lambda r: (mesh.pmax(vals[r], axes),
+                                mesh.axis_group(axes)))
+    for r, (got, grp) in enumerate(out):
+        members = [m for m in range(8) if all(
+            mesh.coords(m)[a] == mesh.coords(r)[a] for a in ("data", "model")
+            if a not in ((axes,) if isinstance(axes, str) else axes))]
+        want = np.max(np.stack([vals[m].numpy() for m in members]), axis=0)
+        assert np.array_equal(got.numpy(), want)
+        assert got.data_ptr() != vals[r].data_ptr()
+        assert (grp.index, grp.size) == (members.index(r), len(members))
+    assert len({o[0].data_ptr() for o in out}) == 8
+    assert mesh.counts["pmax"] == 8
+
+
+def test_axis_group_collectives_are_the_meshs():
+    mesh = make_mesh(2, 2, device="cpu")
+    out = _run(mesh, lambda r: (
+        mesh.axis_group("data").psum(torch.tensor([float(r)])),
+        mesh.axis_group("data").pmax(torch.tensor([float(r)]))))
+    for r, (s, m) in enumerate(out):
+        assert float(s) == (r % 2) * 2 + 2 and float(m) == r % 2 + 2
+    assert mesh.counts == {"psum": 4, "pmax": 4}
+
+
+def test_a_pmax_nobody_else_reaches_times_out_and_aborts_the_others():
+    mesh = Mesh({"data": 2, "model": 2}, timeout=0.5)
+
+    def fn(r):
+        if r == 0:
+            return mesh.pmax(torch.ones(1), "data")  # rank 2 never comes
+        if r == 2:
+            time.sleep(1.5)
+        return None
+
+    t0 = time.monotonic()
+    with pytest.raises(CollectiveError, match=r"rank 0.*pmax over data"
+                       r".*timed out after 0.5 s.*\[2\]"):
+        _run(mesh, fn)
+    assert time.monotonic() - t0 < 10
+    mesh = make_mesh(1, 3, device="cpu", timeout=30.0)
+
+    def boom(r):
+        if r == 1:
+            raise KeyError("rank one's own fault")
+        return mesh.pmax(torch.ones(1), "model")
+
+    t0 = time.monotonic()
+    with pytest.raises(KeyError, match="rank one's own fault"):
+        _run(mesh, boom)
+    assert time.monotonic() - t0 < 10  # the others' pmax aborted
+
+
 def test_psum_scatter_and_all_gather_are_inverse_layouts():
     mesh = make_mesh(2, 4, device="cpu")
     rng = np.random.default_rng(0)

@@ -69,7 +69,8 @@ def test_moe_layouts_over_devices_raise_naming_item_18(arch):
     runtime's mesh) a stage holds its rank's expert shard and exchanges
     tokens through the data group's collectives: it runs only cut at its
     exchanges (``ArchModel.stage_phases``, ``models/phases.py``), so its
-    plain forward, with or without autograd, and its decode raise."""
+    plain forward, with or without autograd, raises, and so does its
+    decode without the data group's exchange (``aux["exchange"]``)."""
     cfg = registry.reduced_config(arch, num_layers=2)
     model = tbuild(cfg, 1)
     sp = model.init_stage_params(0, seed=None, device="cpu", data_size=2)

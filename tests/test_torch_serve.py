@@ -32,7 +32,7 @@ from repro_torch.models.convert import (
     cache_from_reference,
     params_from_reference,
 )
-from repro_torch.pipeline.decode import DecodeOptions, make_serve_fn
+from repro_torch.pipeline.decode import DecodeOptions, make_staircase_fn
 
 ROOT = Path(__file__).resolve().parents[1]
 TOKENS = 4
@@ -76,7 +76,8 @@ def reference_server(arch, n_layers, stages, batch, cache_len, enc_len):
     sp_t, io_t = params_from_reference(model_t, sp, io, "cpu")
     opts = DecodeOptions(mb_rows=1, cache_len=cache_len, enc_len=enc_len)
     server = dict(cfg=cfg_t, model=model_t, sp=sp_t, io=io_t,
-                  serve_step=make_serve_fn(model_t, opts, num_groups=batch),
+                  serve_step=make_staircase_fn(model_t, opts,
+                                               num_groups=batch),
                   caches=cache_from_reference(model_t, cache, "cpu"))
     return model_j, sp, io, cache, server
 
@@ -145,7 +146,7 @@ from repro.launch.serve import build_server
 from repro_torch.configs import registry
 from repro_torch.models.build import build
 from repro_torch.models.convert import cache_from_reference, params_from_reference
-from repro_torch.pipeline.decode import DecodeOptions, make_serve_fn
+from repro_torch.pipeline.decode import DecodeOptions, make_staircase_fn
 
 arch, batch, cache_len, steps = "seamless-m4t-large-v2", 2, 16, 3
 s = build_server(arch, data=1, stages=2, layers=4, batch=batch,
@@ -166,8 +167,8 @@ model = build(registry.reduced_config(arch, num_layers=4), num_stages=2)
 sp, io = params_from_reference(model, jax.tree.map(np.asarray, s["sp"]),
                                jax.tree.map(np.asarray, s["io"]), "cpu")
 caches = cache_from_reference(model, cache, "cpu")
-step = make_serve_fn(model, DecodeOptions(mb_rows=1, cache_len=cache_len,
-                                          enc_len=cache_len // 4), batch)
+step = make_staircase_fn(model, DecodeOptions(
+    mb_rows=1, cache_len=cache_len, enc_len=cache_len // 4), batch)
 toks, port = torch.from_numpy(first).long(), [first.tolist()]
 for pos in range(steps):
     toks = step(sp, io, caches, {"tokens": toks}, pos)
