@@ -73,6 +73,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    (24 + 24 layers) through ``--runtime table`` on a 1 x 4 mesh, 8
    microbatches of 2048 decoder tokens and 2048 encoder frames, 1f1b
    twice (bitwise), its launches as ``table_launches`` counts them;
+   then the cell matrix (``phase_cells_path``, ROADMAP 18d):
+   ``paper-gpt3-large`` x ``train_4k`` planned by ``launch.cells`` on
+   1 x 4, its 256 rows cut to 8 microbatches of 1 x 4096, two steps of
+   ``build_cell``'s step function with ZeRO-1 AdamW, step 0's loss and
+   grad shards bit for bit ``build_trainer``'s executor's, launches as
+   ``table_launches`` counts them; a mid stage's F and B timed against
+   ``analysis/roofline.py``'s time for them (none may be faster); and the
+   full-width stage re-layout 4 -> 2 -> 4 (live slots bitwise, the 4- and
+   2-stage forwards bitwise);
    then ``repro_torch.launch.serve`` (full
    width, batch 8, cache 4096): ``seamless-m4t-large-v2`` for 32 tokens
    (the path of K3), ``zamba2-1.2b``, ``paper-gpt3-large``,
@@ -89,8 +98,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ``deepseek-moe-16b`` cut to 4 layers ``ep`` on 2 x 2 (``all_to_all`` as
    counted, a rerun bitwise) and ``gemma3-4b`` at full width and depth
    under ``sp_mode`` on 2 x 4 with its 131,072-token cache (65,536 rows a
-   rank) against the unsharded 1 x 4 run from two positions, each run's
-   ms a step, peak memory, launches and collectives a step printed;
+   rank) against the unsharded 1 x 4 run from two positions, then the
+   ``long_500k`` cell through ``launch.cells.build_cell`` on the same
+   weights and caches (the ``sp_mode`` run's bits), each run's ms a step,
+   peak memory, launches and collectives a step printed;
 6. right after the language main paths (``phase_runtime_flags``), the
    runtime flags on paper-gpt3-large full size: telemetry
    (``--metrics-report``, ``--explain``, ``--export-perfetto``, its step
@@ -126,7 +137,8 @@ TOL_LSE = 1e-4  # float32 log-sum-exp of either input dtype
 TOL_SSD = {"float32": (5e-4, 1e-5), "bfloat16": (6e-2, 3e-2)}
 #: (b, sq, hq, hkv, hd, window): the main paths, then tests/test_kernels.py,
 #: then every head dim at a ragged sq (not a multiple of 64 or 128), then
-#: gemma3-4b's head_dim 256 (local window 1024, global, ragged)
+#: gemma3-4b's head_dim 256 (local window 1024, global, ragged), the
+#: seamless decoder's, and gpt3's train_4k cell at seq 4096
 ATTN_SHAPES = [
     (1, 2048, 16, 16, 96, 0),
     (1, 2048, 32, 32, 64, 0),
@@ -146,6 +158,7 @@ ATTN_SHAPES = [
     (1, 2048, 8, 4, 256, 0),
     (1, 1000, 8, 4, 256, 300),
     (1, 2048, 16, 16, 64, 0),
+    (1, 4096, 16, 16, 96, 0),
 ]
 #: K1 with causal=False, (b, sq, sk, hq, hkv, hd): seamless's encoder and
 #: cross-attention (2048 decoder tokens, 2048 encoder frames), a
@@ -209,8 +222,11 @@ PATH_SHAPES = {
     # the decoder's causal self-attention (its non-causal encoder and
     # cross-attention are timed at NONCAUSAL_SHAPES[0]); 2048 rows of the
     # decoder tokens or of the encoder frames
-    "seamless-m4t-large-v2 table": {"attn": [ATTN_SHAPES[-1]],
+    "seamless-m4t-large-v2 table": {"attn": [ATTN_SHAPES[-2]],
                                     "norm": [(2048, 1024)], "ssd": []},
+    # the train_4k cell through launch/cells.build_cell (phase_cells_path)
+    "paper-gpt3-large train_4k": {"attn": [ATTN_SHAPES[-1]],
+                                  "norm": [(4096, 1536)], "ssd": []},
 }
 
 COMMON_ARGS = ["--runtime", "actor", "--full-size", "--stages", "4",
@@ -1681,6 +1697,285 @@ def phase_enc_dec_table_path():
     return runs
 
 
+#: the cells through ``launch/cells.build_cell`` (phase_cells_path):
+#: paper-gpt3-large x train_4k planned on a 1 x 4 mesh, its global batch of
+#: 256 rows cut to CELL_ROWS one-row microbatches of CELL_SEQ tokens
+CELL_ARCH = "paper-gpt3-large"
+CELL_SEQ = 4096
+CELL_ROWS = 8
+CELL_STEPS = 2
+#: the op bodies timed against their roofline time: a mid stage's
+CELL_MID_STAGE = 1
+CELL_OP_REPS = 3
+#: the re-layout forward: one [1, RELAYOUT_SEQ] batch through the 4- and
+#: the 2-stage chain; float32 tolerance should the bf16 chains differ (the
+#: reference's tests/test_fault_tolerance.py)
+RELAYOUT_SEQ = 2048
+TOL_RELAYOUT_F32 = 2e-4
+
+
+def phase_cells_path():
+    """The cell matrix on the card (ROADMAP 18d): the gpt3 ``train_4k``
+    cell through ``build_cell`` (``cell_train_gpt3``, with the roofline's
+    op times against the card's) and the full-width stage re-layout
+    (``cell_relayout_gpt3``).  The gemma3-4b ``long_500k`` cell runs inside
+    ``serve_mesh_gemma``, beside the serve mesh's own ``sp_mode`` run."""
+    import gc
+
+    import torch
+
+    gc.collect()  # the earlier table runs' ranks and state
+    torch.cuda.empty_cache()
+    runs = cell_train_gpt3()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(cell_relayout_gpt3())
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def cell_train_gpt3():
+    """paper-gpt3-large x train_4k at full width and depth through
+    ``launch/cells.build_cell``: planned by ``plan_cell`` on the 1 x 4 mesh
+    of ``build_trainer(seq=CELL_SEQ, microbatches=CELL_ROWS, schedule="1f1b",
+    reduced=False)``, its 256 rows cut to CELL_ROWS with
+    ``dataclasses.replace``, CELL_STEPS steps of the cell's step function
+    and the trainer's ZeRO-1 AdamW on the trainer's seeded weights.  Step
+    0's loss and every rank's grad shards must equal, bit for bit, those of
+    the trainer's own executor on the same weights and batch (one executor
+    wired by two callers); each step's K1 and K2 launches exactly
+    ``table_launches``; finite losses.  Then the roofline
+    (``analysis/roofline.py``) against the card: F and B of a mid stage
+    (CELL_MID_STAGE, 6 layers, one row of CELL_SEQ tokens) timed with CUDA
+    events after a warm-up (stream time, launch gaps included), each beside
+    ``_t(per_op_costs(plan)[op])`` at the H100 constants; no op may run
+    faster than its roofline time (a count too high would show so).
+    Returns the run for ``main``'s record."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis import roofline
+    from repro_torch.data.synthetic import synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells
+    from repro_torch.launch.train import TrainRun, _device_batch, build_trainer
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.pipeline.executor import shard_batch
+    from repro_torch.pipeline.stagefn import StageFnOptions, StageFns
+
+    smi = card()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = build_trainer(CELL_ARCH, data=1, stages=4, layers=None, mb_rows=1,
+                      microbatches=CELL_ROWS, seq=CELL_SEQ, schedule="1f1b",
+                      reduced=False, device="cuda")
+    mesh = t["mesh"]
+    plan = cells.plan_cell(CELL_ARCH, "train_4k", mesh, num_stages=4)
+    print(f"cell {CELL_ARCH} x train_4k through launch.cells.build_cell on "
+          f"{mesh}: planned {plan.num_microbatches} microbatches of "
+          f"{plan.mb_rows} x {plan.seq_len}, cut to {CELL_ROWS} (global "
+          f"batch {plan.cell.global_batch} -> {CELL_ROWS})")
+    plan = dataclasses.replace(
+        plan, num_microbatches=CELL_ROWS,
+        cell=dataclasses.replace(plan.cell, global_batch=CELL_ROWS))
+    fn, _, specs = cells.build_cell(plan, mesh, schedule="1f1b")
+    table = cells.schedule_table(plan, "1f1b")
+    want = table_launches(plan.model, table, 1)
+    _, opt_update = make_optimizer(t["model"], mesh, t["partition"],
+                                   t["opt_cfg"])
+    run = TrainRun(losses=[], step_seconds=[])
+    launches: dict = {}
+    for step in range(CELL_STEPS):
+        arrays = synth_batch(t["cfg"], CELL_ROWS, CELL_SEQ, seed=0,
+                             step=step)
+        shards = shard_batch(mesh, _device_batch(arrays, "cuda"), specs)
+        args = [(t["stage_params"][r], t["io_params"][r], shards[r])
+                for r in range(mesh.size)]
+        ref = mesh.run(t["exec_fn"], args) if step == 0 else None
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = mesh.run(fn, args)
+        counts = ops.launch_counts()
+        stats = mesh.run(opt_update, [
+            (t["stage_params"][r], t["io_params"][r], t["opt_state"][r],
+             out[r][1], out[r][2], step) for r in range(mesh.size)])
+        loss = float(out[0][0]["loss"])
+        run.step_seconds.append(time.perf_counter() - t0)
+        run.losses.append(loss)
+        run.gnorms.append(float(stats[0]["gnorm"]))
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"cell step {step} launched {counts}, the "
+                                 f"code counts {want}")
+        if ref is not None:
+            for r, ((m, gs, eg), (rm, rgs, reg)) in enumerate(zip(out, ref)):
+                if not torch.equal(m["loss"], rm["loss"]) or sorted(gs) != \
+                        sorted(rgs) or eg or reg or not all(
+                            torch.equal(gs[k], rgs[k]) for k in gs):
+                    raise AssertionError(f"cell step 0 rank {r}: loss or "
+                                         f"grad shards differ from "
+                                         f"build_trainer's executor")
+            print(f"  step 0: loss {loss} and the grad shards of all "
+                  f"{mesh.size} ranks ({sum(len(o[1]) for o in out)} "
+                  f"leaves) bit for bit build_trainer's executor's")
+            del ref
+    mem = torch.cuda.max_memory_allocated()
+    tokens = CELL_ROWS * CELL_SEQ
+    print(f"  losses {run.losses}  gnorms {run.gnorms}  step seconds "
+          f"{run.step_seconds}  launches {launches} (from the code "
+          f"{CELL_STEPS} x {want})  peak memory {mem / 2**30:.2f} GiB  "
+          f"[{smi}]")
+    for i, sec in enumerate(run.step_seconds):
+        print(f"  step {i}: {sec:.3f} s  {tokens / sec:,.0f} tokens/s")
+    if not all(math.isfinite(x) for x in run.losses + run.gnorms):
+        raise AssertionError(f"cell losses {run.losses}, gnorms {run.gnorms}")
+
+    # the roofline's op times against the card's
+    oc = roofline.per_op_costs(plan)
+    fns = StageFns(plan.model, StageFnOptions(mb_rows=1, seq_len=CELL_SEQ))
+    s = CELL_MID_STAGE
+    sp, io = t["stage_params"][s], t["io_params"][s]
+    bm = {k: v[:1] for k, v in shards[s].items()}
+    g = torch.Generator(device="cuda").manual_seed(11)
+    d, dt = plan.model.cfg.d_model, plan.model.cfg.dtype
+    x = torch.randn((1, CELL_SEQ, d), generator=g, device="cuda").to(dt)
+    g_in = torch.randn((1, CELL_SEQ, d), generator=g,
+                       device="cuda").to(dt) * 1e-3
+    bodies = {"F": lambda: fns.forward(s)(sp, io, x, bm),
+              "B": lambda: fns.backward(s)(sp, io, x, g_in, bm)}
+    for op, body in bodies.items():
+        body()  # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(CELL_OP_REPS):
+            body()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / CELL_OP_REPS
+        roof_ms = roofline._t(oc[op]) * 1e3
+        print(f"  roofline {op} (stage {s}, {plan.model.counts[s]} layers, "
+              f"1 x {CELL_SEQ}): {oc[op]['flops']:.4g} FLOP, "
+              f"{oc[op]['bytes']:.4g} B counted -> {roof_ms:.3f} ms at 989 "
+              f"TFLOP/s and 3.35 TB/s; measured {ms:.3f} ms (CUDA events "
+              f"over {CELL_OP_REPS} calls, stream time with launch gaps), "
+              f"{ms / roof_ms:.2f}x  [{smi}]")
+        if not ms >= roof_ms:
+            raise AssertionError(f"roofline {op}: measured {ms:.3f} ms is "
+                                 f"below its bound {roof_ms:.3f} ms")
+    prod = roofline.roofline_cell(CELL_ARCH, "train_4k")
+    print(f"  roofline_cell({CELL_ARCH}, train_4k) on the 16 x 16 "
+          f"production mesh, H100 constants: est_step_s "
+          f"{prod.est_step_s:.4f}, projected_mfu {prod.projected_mfu:.4f}, "
+          f"compute {prod.compute_s:.4f} s, memory {prod.memory_s:.4f} s, "
+          f"collective {prod.collective_s:.4f} s ({prod.dominant})")
+    return {(CELL_ARCH, "cell train_4k"): (run, launches, mem)}
+
+
+def cell_relayout_gpt3():
+    """Stage re-layout (``runtime/elastic.relayout_stage_params``) at full
+    width: paper-gpt3-large's seeded 4-stage parameters, exported with
+    ``convert.params_to_reference``, shrunk to 2 stages and regrown to 4:
+    every live slot must come back bit for bit.  Then the 4-stage and the
+    2-stage chains run one seeded [1, RELAYOUT_SEQ] batch in bf16 through
+    K1 and K2 (each launched as the 24 layers count): the same layers in
+    the same order at the same shapes, so the last hidden states must be
+    bitwise equal; were they not, the difference is printed and both
+    chains are held in float32 at TOL_RELAYOUT_F32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt.store import _leaves_with_path
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import TrainRun
+    from repro_torch.models.build import build
+    from repro_torch.models.common import global_layer_index
+    from repro_torch.models.convert import (params_from_reference,
+                                            params_to_reference)
+    from repro_torch.runtime.elastic import relayout_stage_params
+
+    cfg = registry.get_arch(CELL_ARCH)
+    m4 = build(cfg, 4)
+    sp4 = [m4.init_stage_params(s, seed=0, device="cuda") for s in range(4)]
+    io = m4.init_io_params(seed=0, device="cuda")
+    t0 = time.perf_counter()
+    sp_np, io_np = params_to_reference(m4, sp4, io)
+    m2, sp2_np = relayout_stage_params(m4, 2, sp_np)
+    m4b, sp4b_np = relayout_stage_params(m2, 4, sp2_np)
+    live = global_layer_index(m4.counts) >= 0
+    a, b = list(_leaves_with_path(sp_np)), list(_leaves_with_path(sp4b_np))
+    if [k for k, _ in a] != [k for k, _ in b] or not all(
+            x.dtype == y.dtype and np.array_equal(x[live], y[live])
+            for (_, x), (_, y) in zip(a, b)):
+        raise AssertionError("re-layout 4 -> 2 -> 4 changed a live slot")
+    print(f"re-layout {CELL_ARCH} (full width, {cfg.num_layers} layers): "
+          f"4 -> 2 -> 4 stages, {len(a)} leaves, every live slot bit for "
+          f"bit ({time.perf_counter() - t0:.1f} s on the host)")
+    def as_model(tree):  # the export holds bf16 leaves as float32
+        if isinstance(tree, dict):
+            return {k: as_model(v) for k, v in tree.items()}
+        return torch.from_numpy(tree).to(cfg.dtype)
+
+    sp2, io2 = params_from_reference(m2, as_model(sp2_np), as_model(io_np),
+                                     "cuda")
+    g = torch.Generator().manual_seed(13)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, RELAYOUT_SEQ),
+                                     generator=g).to("cuda")}
+
+    def chain(model, sp, io):
+        aux = {"positions": torch.arange(RELAYOUT_SEQ, dtype=torch.int32,
+                                         device="cuda")[None],
+               "data_size": 1, "moe_layout": "none"}
+        with torch.no_grad():
+            x = model.embed(io, batch)
+            for s in range(model.num_stages):
+                x = model.stage_forward(sp[s], io, x, aux, model.rows(s))
+        return x
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    y4 = chain(m4, sp4, io)
+    y2 = chain(m2, sp2, io2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {"flash_attention_fwd": 2 * cfg.num_layers,
+            "rmsnorm": 2 * 2 * cfg.num_layers}
+    print(f"  4-stage and 2-stage chains, bf16, [1, {RELAYOUT_SEQ}]: "
+          f"{secs:.3f} s, launches {counts} (from the code {want})")
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"re-layout chains launched {counts}, the code "
+                             f"counts {want}")
+    if not torch.isfinite(y4.float()).all():
+        raise AssertionError("re-layout: the 4-stage chain is not finite")
+    if torch.equal(y4, y2):
+        print("  the last hidden states are bit for bit equal")
+    else:
+        err = float((y4.float() - y2.float()).abs().max())
+        print(f"  the bf16 last hidden states differ by {err:.3e}: held in "
+              f"float32 at {TOL_RELAYOUT_F32:g}")
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        k4, k2 = build(f32, 4), build(f32, 2)
+        z4 = chain(k4, *params_from_reference(k4, sp_np, io_np, "cuda"))
+        z2 = chain(k2, *params_from_reference(k2, sp2_np, io_np, "cuda"))
+        e32 = float((z4 - z2).abs().max())
+        print(f"  float32: max |4-stage - 2-stage| {e32:.3e}")
+        if not e32 <= TOL_RELAYOUT_F32:
+            raise AssertionError(f"re-layout float32 chains differ by "
+                                 f"{e32:.3e}")
+    run = TrainRun(losses=[], step_seconds=[secs])
+    return {(CELL_ARCH, "relayout forward"): (run, counts, 0)}
+
+
 #: the runs of phase_runtime_flags: paper-gpt3-large, full size, COMMON_ARGS
 GPT3_ARGS = ["--arch", "paper-gpt3-large"] + COMMON_ARGS
 FIXED_ORDER = ["--schedule", "1f1b"]
@@ -2477,7 +2772,7 @@ def serve_mesh_moe(smi) -> dict:
     return {(arch, "serve ep 2x2"): (a["run"], a["launches"], mem)}
 
 
-def gemma_runs(cfg, stages: int, plans, tokens: int, smi):
+def gemma_runs(cfg, stages: int, plans, tokens: int, smi, cell=None):
     """gemma3-4b serve runs at cache GEMMA_CACHE, batch 1, from each of
     GEMMA_POSITIONS, one mesh per plan ``(label, data, sp_mode, reruns)``,
     every one from the same seeded cache (``k``/``v`` drawn below the
@@ -2485,8 +2780,12 @@ def gemma_runs(cfg, stages: int, plans, tokens: int, smi):
     and past a run's position zeroed before it).  The first plan is the
     unsharded run; the others are fed its tokens.  Each run's launches
     and collectives a step must be as counted; ``reruns`` runs the last
-    position again, which must give the same bits.  Returns the runs by
-    (label, pos) and the entries for ``main``'s record."""
+    position again, which must give the same bits.  ``cell``, a
+    ``launch.cells`` plan of the last plan's mesh: after the last plan's
+    runs, its ``build_cell`` step function serves from each position again
+    on the same weights and caches, and must give that plan's tokens and
+    logits bit for bit.  Returns the runs by (label, pos) and the entries
+    for ``main``'s record."""
     import torch
 
     from repro_torch.launch.mesh import make_mesh
@@ -2512,14 +2811,26 @@ def gemma_runs(cfg, stages: int, plans, tokens: int, smi):
             del fill
             torch.cuda.empty_cache()
         sp, io = rank_params(model, mesh, seed=0, device="cuda")
-        server = mesh_server(model, mesh, opts, 1, sp, io, caches)
+        servers = {label: mesh_server(model, mesh, opts, 1, sp, io, caches)}
         shard = L // data
         want = {"ppermute": mesh.size * stages, "psum": mesh.size}
         if sp_mode:
             want.update(pmax=data * layers,
                         psum=2 * data * layers + mesh.size)
-        for i, pos in enumerate(GEMMA_POSITIONS
-                                + GEMMA_POSITIONS[-1:] * reruns):
+        via_cell = cell is not None and k == len(plans) - 1
+        if via_cell:
+            from repro_torch.launch import cells
+
+            fn, _, specs = cells.build_cell(cell, mesh)
+            servers["cell"] = dict(servers[label], rank_fn=fn,
+                                   batch_specs=specs)
+        # (pos, server tag, again): the cell's run right after the plan's own
+        # from the same position, before a run from a lower position
+        # writes rows the higher one reads
+        runs = [r for pos in GEMMA_POSITIONS for r in
+                [(pos, label, False)] + [(pos, "cell", False)] * via_cell]
+        runs += [(GEMMA_POSITIONS[-1], label, True)] * reruns
+        for pos, tag, again in runs:
             for r, c in enumerate(caches):  # rows at and past pos unwritten
                 start = max(0, pos - mesh.coords(r)["data"] * shard)
                 for name in ("k", "v"):
@@ -2527,12 +2838,13 @@ def gemma_runs(cfg, stages: int, plans, tokens: int, smi):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             feed = None if k == 0 else res[plans[0][0], pos]["tokens"]
-            run = mesh_decode(server, first, pos, tokens, feed=feed)
+            run = mesh_decode(servers[tag], first, pos, tokens, feed=feed)
             mem = torch.cuda.max_memory_allocated()
-            again = i >= len(GEMMA_POSITIONS)
             name = (f"gemma3-4b {cfg.num_layers} layers {label} "
                     f"{data} x {stages} from pos {pos}"
-                    + (" again" if again else ""))
+                    + (" again" if again else "")
+                    + (" through launch.cells.build_cell"
+                       if tag == "cell" else ""))
             report_mesh_run(name, run["run"], run["launches"],
                             {n: v * data for n, v in per_rank.items()},
                             mem, smi)
@@ -2541,18 +2853,23 @@ def gemma_runs(cfg, stages: int, plans, tokens: int, smi):
                 if got != want:
                     raise AssertionError(f"{name}: collectives {got}, "
                                          f"the code gives {want}")
-            if again:
+            if again or tag == "cell":
                 last = res[label, pos]
                 if run["tokens"] != last["tokens"] or not torch.equal(
                         run["logits"], last["logits"]):
-                    raise AssertionError(f"{name}: the rerun differs")
-                print(f"  {name}: bit for bit the first run")
+                    raise AssertionError(f"{name}: the tokens or logits "
+                                         f"differ from the {label} run's")
+                print(f"  {name}: bit for bit the {label} run (tokens "
+                      f"{run['tokens'][1:]})")
+                if tag == "cell":
+                    out["gemma3-4b", f"serve long_500k cell {data}x{stages} "
+                        f"pos {pos}"] = (run["run"], run["launches"], mem)
                 continue
             res[label, pos] = run
             out["gemma3-4b", f"serve {cfg.num_layers}L {label} "
                 f"{data}x{stages} pos {pos}"] = (run["run"],
                                                 run["launches"], mem)
-        del server, caches, sp, io
+        del servers, caches, sp, io
         torch.cuda.empty_cache()
     return res, out
 
@@ -2584,12 +2901,19 @@ def serve_mesh_gemma(smi) -> dict:
       unsharded run's top two logits lie within that step's error
       (printed); the rerun bit for bit; ``pmax``/``psum`` a step as
       counted (3 a layer and data rank, and the tokens' psum over
-      ``model`` on every rank)."""
+      ``model`` on every rank);
+    * the ``long_500k`` cell (ROADMAP 18d): ``launch.cells.plan_cell`` on
+      2 x 4 plans it under ``sp_mode`` (batch 1 under two data ranks), its
+      cache cut to GEMMA_CACHE; its ``build_cell`` step function serves
+      from both positions on the ``sp_mode`` run's weights and caches and
+      gives that run's tokens and logits bit for bit."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import registry
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_mesh
 
     print(f"serve mesh gemma3-4b, batch 1, cache {GEMMA_CACHE}: unsharded "
           f"vs sp_mode over 2 data ranks, from each of {GEMMA_POSITIONS}:")
@@ -2610,10 +2934,24 @@ def serve_mesh_gemma(smi) -> dict:
             raise AssertionError(f"gemma3-4b float32 pos {pos}: sp_mode "
                                  f"departs from the unsharded run")
     g = registry.get_arch("gemma3-4b")
+    # the long_500k cell as launch.cells plans it on 2 x 4 (batch 1 under
+    # two data ranks: sp_mode), its cache cut to GEMMA_CACHE rows
+    cell = cells.plan_cell("gemma3-4b", "long_500k",
+                           make_mesh(2, 4, device="cuda"), num_stages=4)
+    print(f"  the gemma3-4b x long_500k cell on 2 x 4: sp_mode "
+          f"{cell.sp_mode}, {cell.num_microbatches} group of "
+          f"{cell.mb_rows} row, cache {cell.cell.seq_len} cut to "
+          f"{GEMMA_CACHE}")
+    if not cell.sp_mode:
+        raise AssertionError("plan_cell did not plan gemma3-4b x long_500k "
+                             "under sp_mode")
+    cell = dataclasses.replace(cell, seq_len=GEMMA_CACHE, cell=dataclasses
+                               .replace(cell.cell, seq_len=GEMMA_CACHE))
     res, o = gemma_runs(g, 4,
                         [("unsharded", 1, False, 0),
                          ("one shard", 1, True, 0),
-                         ("sp_mode", 2, True, 1)], MESH_TOKENS, smi)
+                         ("sp_mode", 2, True, 1)], MESH_TOKENS, smi,
+                        cell=cell)
     out.update(o)
     floor = max(e for pos in GEMMA_POSITIONS for e in logit_errors(
         res["one shard", pos], res["unsharded", pos]))
@@ -2696,6 +3034,7 @@ def main(argv=None) -> int:
     runs.update(phase_table_path(runs))
     runs.update(phase_moe_table_path())
     runs.update(phase_enc_dec_table_path())
+    runs.update(phase_cells_path())
     runs.update(phase_runtime_flags())
     runs.update(phase_multimodal_path())
     runs.update(phase_serve_path())

@@ -2,6 +2,7 @@
 
 Each kernel module holds the kernel's launcher, a plain PyTorch version of
 the same function and a launch counter; ``ops.py`` is the public API used by
-the models.  A wrapper given a CPU tensor runs the plain version; given a
-CUDA tensor it launches the kernel or raises.
+the models.  A wrapper given a CPU tensor runs the plain version (a meta
+tensor too, which only propagates shapes); given a CUDA tensor it launches
+the kernel or raises.
 """

@@ -29,6 +29,11 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: the devices whose tensors take a kernel's plain version: the CPU (the
+#: tests), and ``meta``, where the plain version only propagates shapes
+#: (the roofline's counts, ``analysis/roofline.py``)
+PLAIN_DEVICES = ("cpu", "meta")
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: name -> (seconds, compiler messages) of the builds made by this process

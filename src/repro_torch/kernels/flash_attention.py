@@ -74,7 +74,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     model's own layout.  CPU tensors take the plain version; CUDA tensors
     launch the kernel or raise.
     """
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention_fwd: no kernel for {q.device}")

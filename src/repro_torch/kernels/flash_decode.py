@@ -147,7 +147,7 @@ def flash_decode(q, k_cache, v_cache, length, *, window: int = 0):
     tensors take the plain version; CUDA tensors launch the kernel or
     raise.
     """
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return flash_decode_plain(q, k_cache, v_cache, length, window=window)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_decode: no kernel for {q.device}")

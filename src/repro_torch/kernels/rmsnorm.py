@@ -72,7 +72,7 @@ def rmsnorm(x, scale, eps: float = 1e-5):
     CPU tensors take the plain version; CUDA tensors launch the Triton
     kernel or raise.
     """
-    if x.device.type == "cpu":
+    if x.device.type in _build.PLAIN_DEVICES:
         return rmsnorm_plain(x, scale, eps)
     if x.device.type != "cuda":
         raise RuntimeError(f"rmsnorm: no kernel for {x.device}")

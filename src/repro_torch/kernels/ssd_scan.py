@@ -187,7 +187,7 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int):
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise.
     """
-    if x.device.type == "cpu":
+    if x.device.type in _build.PLAIN_DEVICES:
         return ssd_chunked_plain(x, dt, A, B, C, D, chunk)
     if x.device.type != "cuda":
         raise RuntimeError(f"ssd_scan: no kernel for {x.device}")

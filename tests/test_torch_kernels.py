@@ -585,21 +585,41 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
                                    "flash_decode": 0, "ssd_scan": 0}
 
 
+class _OnXPU:
+    """Stands for a tensor on a device with neither a kernel nor a plain
+    route (the wrappers read its device first)."""
+
+    device = torch.device("xpu")
+
+
 def test_wrappers_reject_devices_without_a_kernel():
-    x = torch.randn(4, 32, device="meta")
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    x = _OnXPU()
     with pytest.raises(RuntimeError, match="no kernel"):
-        rn.rmsnorm(x, torch.zeros(32, device="meta"))
-    q = torch.randn(1, 2, 16, 32, device="meta")
+        rn.rmsnorm(x, x)
     with pytest.raises(RuntimeError, match="no kernel"):
-        fa.flash_attention_fwd(q, q, q)
-    x, bc, h = (torch.randn(shape, device="meta") for shape in
+        fa.flash_attention_fwd(x, x, x)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ssd_mod.ssd_scan(x, x, x, x, x, x, chunk=16)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fd.flash_decode(x, x, x, 1)
+    # a meta tensor takes the plain route, which carries the shapes (the
+    # roofline counts on meta tensors) and launches nothing
+    ops.reset_launch_counts()
+    x = torch.empty(4, 32, device="meta")
+    assert rn.rmsnorm(x, torch.zeros(32, device="meta")).shape == (4, 32)
+    q = torch.empty(1, 2, 16, 32, device="meta")
+    out, lse = fa.flash_attention_fwd(q, q, q)
+    assert out.shape == q.shape and lse.shape == (1, 2, 16)
+    x, bc, h = (torch.empty(shape, device="meta") for shape in
                 ((1, 32, 2, 16), (1, 32, 8), (2,)))
-    with pytest.raises(RuntimeError, match="no kernel"):
-        ops.ssd(x, torch.randn(1, 32, 2, device="meta"), h, bc, bc, h,
+    y = ops.ssd(x, torch.empty(1, 32, 2, device="meta"), h, bc, bc, h,
                 chunk=16)
-    q = torch.randn(1, 1, 2, 32, device="meta")
-    with pytest.raises(RuntimeError, match="no kernel"):
-        ops.decode_attention(q, q, q, 1)
+    assert y.shape == x.shape and y.device.type == "meta"
+    q = torch.empty(1, 1, 2, 32, device="meta")
+    assert ops.decode_attention(q, q, q, 1).shape == q.shape
+    assert not any(ops.launch_counts().values())
 
 
 @pytest.mark.cuda

@@ -263,9 +263,18 @@ def test_ssd_wrapper_counts_nothing_on_the_cpu_and_rejects_other_devices():
     args = [torch.from_numpy(a) for a in ssd_inputs(1, 64, 2, 16, 8, 0)]
     ops.ssd(*args, chunk=32)
     assert ops.launch_counts()["ssd_scan"] == 0
-    meta = [a.to("meta") for a in args]
+    # a device with neither a kernel nor a plain route (the wrapper reads
+    # x's device first) is refused; a meta tensor takes the plain route,
+    # which carries the shapes (the roofline's counts) and launches nothing
+    class OnXPU:
+        device = torch.device("xpu")
+
     with pytest.raises(RuntimeError, match="no kernel"):
-        ssd.ssd_scan(*meta, chunk=32)
+        ssd.ssd_scan(OnXPU(), *args[1:], chunk=32)
+    meta = [a.to("meta") for a in args]
+    y = ssd.ssd_scan(*meta, chunk=32)
+    assert y.shape == args[0].shape and y.device.type == "meta"
+    assert ops.launch_counts()["ssd_scan"] == 0
 
 
 # K4's tensor-core kernel (bf16): its plan and its arithmetic, mirrored in
