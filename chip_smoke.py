@@ -59,17 +59,28 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    microbatches of ~2048 tokens); right after the language paths, the
    schedule-table executor with ZeRO-1 (``--runtime table``,
    ``phase_table_path``): gpt3 on a 1 x 4 mesh of 8 microbatches under
-   1f1b (twice: bitwise), gpipe, zb and rrfp, and on a 2 x 4 mesh of 4
+   1f1b, gpipe, zb and rrfp, and on a 2 x 4 mesh of 4
    microbatches per data rank under 1f1b, each run's K1 and K2 launches
    exactly as ``table_launches`` counts them, its step-0 loss within 1e-4
    of the actor bf run's, the 2 x 4 run's data replicas bitwise equal;
    then (``phase_moe_table_path``) ``deepseek-moe-16b`` cut to 4 layers
    through ``--runtime table`` on a 2 x 2 mesh (the ``ep`` layout, 32
-   experts a data rank, 4 microbatches per data rank) under 1f1b twice
-   (bitwise) and zb, its launches as ``table_launches`` counts them, its
+   experts a data rank, 4 microbatches per data rank) under 1f1b and zb,
+   its launches as ``table_launches`` counts them, its
    step-0 losses within 1e-4 of an actor bf step's on its 2 stages, its data
    replicas' replicated leaves bitwise equal and its collectives per step
-   printed; then the enc-dec ``seamless-m4t-large-v2`` at full width and depth
+   printed; then (``phase_procs_path``, ROADMAP 18a (ii)) the mesh of
+   processes (``launch/procs.py``, one process per rank, gloo with its
+   payloads staged through host memory): every collective on CUDA
+   tensors in a 2 x 2 world of four processes bitwise the thread mesh's;
+   gpt3 1f1b with ``--procs`` on 1 x 4, the thread 1 x 4 run again (in
+   turns; the same bits as the first), gpt3 1f1b ``--procs`` on 2 x 4
+   (eight processes) and deepseek-moe ``ep`` 1f1b ``--procs`` on 2 x 2
+   (cut to 2 layers, and a thread run of that cut beside it), each with its thread run's losses, gnorms and every rank's replicated
+   parameters (digests), K1/K2 launches summed over the processes as
+   ``table_launches`` counts them, each process's peak memory and the
+   card's ``memory.used`` printed; ``--dist-backend nccl`` with 4 ranks on
+   one card stops before a world starts; then the enc-dec ``seamless-m4t-large-v2`` at full width and depth
    (24 + 24 layers) through ``--runtime table`` on a 1 x 4 mesh, 8
    microbatches of 2048 decoder tokens and 2048 encoder frames, 1f1b
    twice (bitwise), its launches as ``table_launches`` counts them;
@@ -1197,8 +1208,6 @@ TABLE_ARGS = ["--runtime", "table", "--arch", "paper-gpt3-large",
               "2048", "--device", "cuda"]
 TABLE_RUNS = [("table 1f1b", ["--devices", "4", "--microbatches", "8",
                               "--schedule", "1f1b", "--steps", "2"]),
-              ("table 1f1b again", ["--devices", "4", "--microbatches", "8",
-                                    "--schedule", "1f1b", "--steps", "2"]),
               ("table gpipe", ["--devices", "4", "--microbatches", "8",
                                "--schedule", "gpipe", "--steps", "2"]),
               ("table zb", ["--devices", "4", "--microbatches", "8",
@@ -1540,9 +1549,9 @@ def phase_table_path(actor_runs):
     2 x 4 mesh, each checked by ``table_run``; each run's step-0 loss must
     be the actor bf run's (``actor_runs``: same weights, same batch) within
     TOL_TABLE_LOSS and its gradient norm within TOL_TABLE_GNORM
-    (``check_step0``); the two 1f1b runs must give the same bits; after
-    the 2 x 4 run the two data replicas' parameters must be bitwise
-    equal."""
+    (``check_step0``); after the 2 x 4 run the two data replicas'
+    parameters must be bitwise equal.  The 1f1b runs keep their ranks'
+    parameter digests for ``phase_procs_path``, which runs 1f1b again."""
     import torch
 
     runs = {}
@@ -1554,13 +1563,23 @@ def phase_table_path(actor_runs):
         check_step0(name, run, actor)
         if name == "table 1f1b 2x4":
             check_replicas(t, len(run.losses))
+        keep_digests(run)
         run.trainer = None
         del t
         runs["paper-gpt3-large", name] = (run, counts, mem)
         torch.cuda.empty_cache()
-    same_runs("table 1f1b", runs["paper-gpt3-large", "table 1f1b"][0],
-              runs["paper-gpt3-large", "table 1f1b again"][0])
     return runs
+
+
+def keep_digests(run) -> None:
+    """A thread run's every rank's replicated stage leaves as digests
+    (``procs.leaf_digests``) in ``run.ranks``, as a ``--procs`` run reports
+    them."""
+    from repro_torch.launch.procs import leaf_digests
+
+    t = run.trainer
+    run.ranks = [{"rank": r, "digests": leaf_digests(t["partition"], sp)}
+                 for r, sp in enumerate(t["stage_params"])]
 
 
 def check_replicas(t, steps: int) -> None:
@@ -1605,7 +1624,6 @@ MOE_TABLE_ARGS = ["--runtime", "table", "--arch", "deepseek-moe-16b",
                   "--microbatches", "4", "--mb-rows", "1", "--seq", "2048",
                   "--steps", "2", "--device", "cuda"]
 MOE_TABLE_RUNS = [("table 1f1b", ["--schedule", "1f1b"]),
-                  ("table 1f1b again", ["--schedule", "1f1b"]),
                   ("table zb", ["--schedule", "zb"])]
 
 
@@ -1617,8 +1635,8 @@ def phase_moe_table_path():
     within TOL_TABLE_LOSS and TOL_TABLE_GNORM of a deepseek actor bf
     step's on the table's stages (``check_step0``; same weights: the
     seeded init draws each layer from its stage and slot; same batch);
-    the two 1f1b runs give the same bits; after each run the data
-    replicas hold bitwise equal replicated leaves."""
+    after each run the data replicas hold bitwise equal replicated
+    leaves."""
     import gc
 
     import torch
@@ -1647,14 +1665,253 @@ def phase_moe_table_path():
             raise AssertionError(f"{arch}: layout {t['model'].moe_layout}")
         check_step0(f"{arch} {name}", run, actor)
         check_replicas(t, len(run.losses))
+        keep_digests(run)
         run.trainer = None
         del t
         runs[arch, name] = (run, counts, mem)
         gc.collect()
         torch.cuda.empty_cache()
-    same_runs(f"{arch} table 1f1b", runs[arch, "table 1f1b"][0],
-              runs[arch, "table 1f1b again"][0])
     return runs
+
+
+#: the table runtime with one process per rank (phase_procs_path): the
+#: 1f1b runs of TABLE_RUNS (1 x 4 and 2 x 4) again with ``--procs`` (gloo:
+#: payloads staged through host memory)
+PROCS_RUNS = [("table 1f1b", ["--devices", "4", "--microbatches", "8",
+                              "--schedule", "1f1b", "--steps", "2"]),
+              ("table 1f1b 2x4", ["--devices", "8", "--microbatches", "4",
+                                  "--schedule", "1f1b", "--steps", "2"])]
+#: (c)'s depth, on both sides of the comparison: four processes of the
+#: MOE_TABLE_LAYERS model peak at 16.6-17.2 GiB each (67.5 GiB together),
+#: and with five CUDA contexts and each allocator's reserve they filled
+#: the 80 GB card (80,968 MiB used in one run, out of memory in rank 1's
+#: first B in another); 2 layers, the dense one and one MoE layer, one a
+#: stage, keep the ``ep`` exchanges of the MoE stage
+MOE_PROCS_LAYERS = 2
+#: the mesh's collectives in a world of four processes on CUDA tensors
+PROCS_COLLECTIVES = [("collectives float32", "collectives", (0, "float32")),
+                     ("collectives bfloat16", "collectives",
+                      (1, "bfloat16"))]
+
+
+def phase_procs_path(runs):
+    """The table runtime on a mesh of processes (``launch/procs.py``, one
+    process per rank, gloo), against the thread mesh's runs of the same
+    call: (a) every collective on CUDA tensors in a 2 x 2 world, bitwise
+    the thread mesh's (``launch/mesh_probes.collectives``); (b) gpt3 1f1b
+    with ``--procs`` on 1 x 4, the thread run once more (in turns: its
+    step time, and the same bits as the first), then 2 x 4: losses,
+    gnorms and every rank's replicated parameters (digests) bitwise the
+    thread runs', K1/K2 launches summed over the processes as
+    ``table_launches`` counts; (c) deepseek-moe ``ep`` cut to
+    MOE_PROCS_LAYERS on 2 x 2, a thread run and then ``--procs``, bitwise; (d) ``--dist-backend nccl`` with 4
+    ranks on one card stops before a world starts.  Each process's peak
+    memory, the card's ``memory.used`` during the run and both meshes'
+    step times are printed."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh_probes, train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.procs import spawn_world
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    t0 = time.perf_counter()
+    shape = {"data": 2, "model": 2}
+    got = mesh_probes.merge(spawn_world(
+        mesh_probes.several, (PROCS_COLLECTIVES,), 4, shape=shape,
+        device="cuda", backend="gloo", deadline=300.0))
+    want = mesh_probes.several(Mesh(shape, device="cuda"), PROCS_COLLECTIVES)
+    for r in range(4):
+        for label, _, _ in PROCS_COLLECTIVES:
+            mesh_probes.check_same_bits(got[r][label], want[r][label],
+                                        f"{label}, rank {r}")
+    print(f"(a) every collective over every axis tuple, float32 and "
+          f"bfloat16 CUDA tensors, 4 processes (gloo, staged) on 2 x 2: "
+          f"bitwise the thread mesh's ({time.perf_counter() - t0:.1f} s "
+          f"with the spawn)")
+
+    arch = "paper-gpt3-large"
+    for name, extra in PROCS_RUNS:
+        run, counts, mem = procs_run(arch, name, TABLE_ARGS + extra)
+        thread = runs[arch, name][0]
+        same_procs_bits(f"{arch} {name}", run, thread)
+        out[arch, name + " procs"] = (run, counts, mem)
+        if name == "table 1f1b":  # the thread mesh again, in turns
+            again, c2, m2 = table_run(arch, name + " again",
+                                      TABLE_ARGS + extra)
+            again.trainer = None
+            same_runs("table 1f1b", thread, again)
+            out[arch, name + " again"] = (again, c2, m2)
+            gc.collect()
+            torch.cuda.empty_cache()
+    for name in ("table 1f1b", "table 1f1b again", "table 1f1b 2x4"):
+        r = (out.get((arch, name)) or runs[arch, name])[0]
+        p = out.get((arch, name + " procs"), (None,))[0]
+        print(f"  {arch} {name}: step s threads {r.step_seconds}"
+              + ("" if p is None else f", processes {p.step_seconds}"))
+
+    moe = "deepseek-moe-16b"
+    cfg = registry.cut_depth(moe, MOE_PROCS_LAYERS)
+    name = f"table 1f1b {MOE_PROCS_LAYERS} layers"
+    argv = MOE_TABLE_ARGS + ["--schedule", "1f1b"]
+    thread, c2, m2 = table_run(moe, name, argv, cfg=cfg)
+    t = thread.trainer
+    if t["model"].moe_layout != "ep":
+        raise AssertionError(f"{moe}: layout {t['model'].moe_layout}")
+    check_replicas(t, len(thread.losses))
+    keep_digests(thread)
+    thread.trainer = None
+    del t
+    out[moe, name] = (thread, c2, m2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run, counts, mem = procs_run(moe, name, argv, cfg=cfg)
+    same_procs_bits(f"{moe} {name}", run, thread)
+    print(f"  {moe} {name}: step s threads {thread.step_seconds}, "
+          f"processes {run.step_seconds}")
+    out[moe, name + " procs"] = (run, counts, mem)
+
+    argv = (TABLE_ARGS + PROCS_RUNS[0][1]
+            + ["--procs", "--dist-backend", "nccl"])
+    try:
+        train.main(argv)
+    except SystemExit as e:
+        if "4 ranks on 1 card(s)" not in str(e):
+            raise AssertionError(f"--dist-backend nccl stopped with {e}")
+        print(f"(d) --dist-backend nccl, 4 ranks: SystemExit ({e})")
+    else:
+        raise AssertionError("--dist-backend nccl with 4 ranks on one card "
+                             "did not stop")
+    return out
+
+
+def procs_run(arch, name, argv, cfg=None):
+    """``train_table`` with ``--procs`` (``cfg`` as ``table_run``'s): the
+    processes' K1/K2 launches summed (each child counts from 0) must be
+    ``table_launches``'s; finite losses and gnorms; the 2-or-more data
+    replicas' digests equal.  Prints each process's peak memory, the
+    card's largest ``memory.used`` while the world ran (sampled every 0.5
+    s) and the collectives a step.  Returns (run, summed launches, the
+    largest process peak)."""
+    import threading
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core.taskgraph import PipelineSpec
+    from repro_torch.launch import train
+    from repro_torch.models.build import build
+    from repro_torch.pipeline import schedules
+
+    argv = argv + ["--procs"]
+    print(f"main path {name} --procs ({arch}): python -m "
+          f"repro_torch.launch.train " + " ".join(argv)
+          + ("" if cfg is None else
+             f"  [cfg: registry.cut_depth, {cfg.pattern}]"))
+    args = train.parser().parse_args(argv)
+    train._check_procs_flags(args)
+    train._check_table_flags(args)
+    used: list[int] = []
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(0.5):
+            used.append(int(card("memory.used").split()[0]))
+
+    torch.cuda.empty_cache()
+    print(f"  this process before the spawn: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; card "
+          f"memory.used {card('memory.used')}")
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        run = train.train_table(args, cfg=cfg)
+    finally:
+        stop.set()
+        sampler.join()
+    wall = time.perf_counter() - t0
+    cfg = cfg or registry.get_arch(args.arch)
+    model = build(cfg, num_stages=args.stages)
+    table = schedules.BUILDERS[args.schedule](PipelineSpec(
+        args.stages, args.microbatches,
+        split_backward=args.schedule == "zb"))
+    data = args.devices // args.stages
+    steps = len(run.losses)
+    warm = warm_launches(model, data)
+    want = {k: steps * v + warm[k] for k, v in table_launches(
+        model, table, data).items()}
+    counts = {k: sum(r["launches"][k] for r in run.ranks)
+              for k in run.ranks[0]["launches"]}
+    peaks = [r["peak_bytes"] for r in run.ranks]
+    print(f"  losses {run.losses}  gnorms {run.gnorms}  step seconds "
+          f"{run.step_seconds}  launches summed over {len(run.ranks)} "
+          f"processes {counts} (from the code {want}: {steps} steps and the "
+          f"warm-up's {warm})  {wall:.1f} s with the spawn")
+    print("  peak memory a process (GiB): "
+          + ", ".join(f"rank {r['rank']} {r['peak_bytes'] / 2**30:.2f}"
+                      for r in run.ranks)
+          + f"; sum {sum(peaks) / 2**30:.2f}; card memory.used at most "
+          f"{max(used, default=0)} MiB")
+    for i, coll in enumerate(run.collectives):
+        print(f"  step {i} collectives (calls, host seconds inside them, "
+              f"summed over the {len(run.ranks)} processes): "
+              + ", ".join(f"{k} {n} {sec:.3f}"
+                          for k, (n, sec) in coll.items()))
+    if not all(math.isfinite(x) for x in run.losses + run.gnorms):
+        raise AssertionError(f"{arch} {name} --procs gave losses "
+                             f"{run.losses}, gnorms {run.gnorms}")
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{arch} {name} --procs launched {counts}, "
+                             f"the code counts {want}")
+    for r in run.ranks:
+        twin = run.ranks[r["coords"]["model"]]  # its data-index-0 replica
+        if r["digests"] != twin["digests"]:
+            raise AssertionError(f"{arch} {name} --procs: rank {r['rank']} "
+                                 f"and its replica {twin['rank']} differ")
+    if data > 1:
+        print(f"  the {data} data replicas' replicated parameters: the same "
+              f"digests in every process")
+    return run, counts, max(peaks)
+
+
+def warm_launches(model, data: int) -> dict[str, int]:
+    """K1 and K2 launches of ``--procs``'s warm-up (``train._warm_up``):
+    each rank one F and one fused B of its stage, counted as
+    ``table_launches`` counts a table of those two ops."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.pipeline.spec import OP_B, OP_F
+
+    table = types.SimpleNamespace(
+        spec=types.SimpleNamespace(split_backward=False),
+        ops=np.array([[OP_F, OP_B]] * model.num_stages))
+    return table_launches(model, table, data)
+
+
+def same_procs_bits(label, procs, thread) -> None:
+    """A ``--procs`` run and the thread run of the same command: the same
+    loss and gnorm bits, every rank's replicated parameters the same
+    digests (so the data replicas agree too)."""
+    if (procs.losses, procs.gnorms) != (thread.losses, thread.gnorms):
+        raise AssertionError(f"{label}: processes {procs.losses} "
+                             f"{procs.gnorms}, threads {thread.losses} "
+                             f"{thread.gnorms}")
+    for p, t in zip(procs.ranks, thread.ranks, strict=True):
+        if p["digests"] != t["digests"]:
+            raise AssertionError(f"{label}: rank {p['rank']}'s parameters "
+                                 f"differ from the thread run's")
+    print(f"  {label}: processes and threads give the same bits over "
+          f"{len(procs.losses)} steps (losses, gnorms, every rank's "
+          f"replicated parameters)")
 
 
 #: the enc-dec table path (phase_enc_dec_table_path):
@@ -3033,6 +3290,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     runs.update(phase_table_path(runs))
     runs.update(phase_moe_table_path())
+    runs.update(phase_procs_path(runs))
     runs.update(phase_enc_dec_table_path())
     runs.update(phase_cells_path())
     runs.update(phase_runtime_flags())

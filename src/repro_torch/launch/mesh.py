@@ -44,8 +44,13 @@ What the mesh guarantees:
   instead (``models/phases.py``).
 
 Rank ``r``'s coordinates are row-major over the axes, the last (``model``)
-fastest, as ``jax.make_mesh`` lays out devices.  A ``torch.distributed``
-process-group backend can implement the same methods, one process per rank.
+fastest, as ``jax.make_mesh`` lays out devices.  :class:`MeshBase` holds
+what does not depend on how ranks talk (coordinates, groups, argument
+checks, the backward guard, the counters), once for both meshes:
+:class:`Mesh` here, and ``launch/procs.ProcessMesh``, which runs the same
+methods over ``torch.distributed``, one process per rank, with the same
+bits.  A rank program loops over :attr:`MeshBase.local_ranks` (every rank
+here, the process's own rank there) to build its per-rank state.
 """
 from __future__ import annotations
 
@@ -82,8 +87,11 @@ class _Group:
         self.published: tuple[int, list] | None = None
 
 
-class Mesh:
-    """A ``(pod ×) data × model`` mesh of ranks in one process."""
+class MeshBase:
+    """What both meshes share: the ``(pod ×) data × model`` coordinates,
+    the axis groups, the collectives' argument checks, the backward guard
+    and the counters.  A subclass gives :attr:`rank`, :attr:`local_ranks`,
+    :meth:`run` and the collectives."""
 
     def __init__(self, shape: dict[str, int], *, device="cpu",
                  timeout: float = DEFAULT_TIMEOUT):
@@ -92,19 +100,14 @@ class Mesh:
         self.device = torch.device(device)
         self.timeout = timeout
         self.size = int(np.prod(list(shape.values())))
-        self._local = threading.local()
-        self._lock = threading.Lock()
-        self._groups: dict[tuple, _Group] = {}
-        self._failed: tuple[int, BaseException] | None = None
-        self._finished: set[int] = set()
-        #: collective name -> calls and host seconds inside them (both
-        #: rendezvous and the copies), summed over ranks (each rank's call
-        #: counts once); :meth:`reset_counts` zeroes them
+        self._count_lock = threading.Lock()
+        #: collective name -> calls and host seconds inside them (the
+        #: rendezvous or the exchange, and the copies), summed over this
+        #: process's ranks (each rank's call counts once);
+        #: :meth:`reset_counts` zeroes them, :meth:`counts_over_ranks` sums
+        #: them over every rank
         self.counts: dict[str, int] = {}
         self.seconds: dict[str, float] = {}
-
-    def __repr__(self) -> str:
-        return f"Mesh({self.shape}, device={self.device})"
 
     # ---- coordinates ---------------------------------------------------
     def coords(self, rank: int) -> dict[str, int]:
@@ -118,12 +121,18 @@ class Mesh:
 
     @property
     def rank(self) -> int:
-        """The calling thread's rank (inside :meth:`run` only)."""
-        r = getattr(self._local, "rank", None)
-        if r is None:
-            raise RuntimeError("a collective or axis_index outside "
-                               "Mesh.run: only rank threads have a rank")
-        return r
+        raise NotImplementedError
+
+    @property
+    def local_ranks(self) -> tuple[int, ...]:
+        """The ranks whose state this process holds, ascending."""
+        raise NotImplementedError
+
+    def per_rank(self, fn: Callable[[int], Any]) -> list:
+        """``[fn(r) if r is local else None for r in range(size)]``: the
+        per-rank argument list of :meth:`run`, built for the local ranks."""
+        local = set(self.local_ranks)
+        return [fn(r) if r in local else None for r in range(self.size)]
 
     def axis_index(self, axis: str) -> int:
         return self.coords(self.rank)[axis]
@@ -148,6 +157,113 @@ class Mesh:
     def group_size(self, axes) -> int:
         return int(np.prod([self.shape[a] for a in self._axes(axes)]))
 
+    def group_members(self, axes, rank: int) -> tuple[int, ...]:
+        """The ranks of ``rank``'s group over ``axes``, ascending."""
+        axes = self._axes(axes)
+        c = self.coords(rank)
+        ranges = [range(self.shape[a]) if a in axes else (c[a],)
+                  for a in self.axis_names]
+        return tuple(sorted(self.rank_of(**dict(zip(self.axis_names, p)))
+                            for p in itertools.product(*ranges)))
+
+    # ---- shared parts of the collectives -------------------------------
+    def _current_rank(self):
+        return self.rank
+
+    def _guard(self, name: str, axes: tuple[str, ...]) -> None:
+        """No collective inside an autograd backward (module docstring)."""
+        if torch._C._current_graph_task_id() != -1:
+            raise CollectiveError(
+                f"rank {self._current_rank()}: {name} over "
+                f"{'/'.join(axes)} inside an autograd backward (a "
+                f"checkpoint's recompute or a Function.backward): call "
+                f"collectives from the rank thread, between autograd calls")
+
+    def _check_rows(self, name: str, x: torch.Tensor, axes) -> int:
+        """``x``'s first dimension must be the group's size (returned)."""
+        n = self.group_size(axes)
+        if x.shape[0] != n:
+            raise ValueError(f"{name} over {axes}: dimension 0 of "
+                             f"{tuple(x.shape)} is not the group size {n}")
+        return n
+
+    def _count(self, name: str, t0: float) -> None:
+        with self._count_lock:
+            self.counts[name] = self.counts.get(name, 0) + 1
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+
+    def reset_counts(self) -> None:
+        with self._count_lock:
+            self.counts, self.seconds = {}, {}
+
+    def sync(self) -> None:
+        """Wait until every process of the mesh gets here (nothing for the
+        one process of a thread mesh): a timed loop starts together."""
+
+    def counts_over_ranks(self) -> dict[str, tuple[int, float]]:
+        """Collective name -> (calls, host seconds inside them), summed
+        over every rank of the mesh."""
+        with self._count_lock:
+            return {k: (n, self.seconds[k])
+                    for k, n in sorted(self.counts.items())}
+
+    def exchange_over(self, axes) -> Callable[[str, torch.Tensor],
+                                              torch.Tensor]:
+        """``exchange(name, x)``: the collective ``name`` (``all_to_all``,
+        ``all_gather`` stacked, ``psum_scatter``) over ``axes``, the form a
+        stage cut at its exchanges takes (``models/phases.py``)."""
+        axes = self._axes(axes)
+
+        def exchange(name: str, x: torch.Tensor) -> torch.Tensor:
+            if name == "all_gather":
+                return self.all_gather(x, axes, tiled=False)
+            if name not in ("all_to_all", "psum_scatter"):
+                raise ValueError(f"no exchange {name!r}")
+            return getattr(self, name)(x, axes)
+
+        return exchange
+
+    def axis_group(self, axes) -> "AxisGroup":
+        """The calling rank's view of its group over ``axes``: its index,
+        the group's size, ``psum`` and ``pmax`` (what a layer that the
+        reference gives an ``axis_name`` needs; inside :meth:`run`)."""
+        axes = self._axes(axes)
+        return AxisGroup(self, axes, self.group_index(axes),
+                         self.group_size(axes))
+
+
+class Mesh(MeshBase):
+    """A ``(pod ×) data × model`` mesh of ranks in one process."""
+
+    def __init__(self, shape: dict[str, int], *, device="cpu",
+                 timeout: float = DEFAULT_TIMEOUT):
+        super().__init__(shape, device=device, timeout=timeout)
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._groups: dict[tuple, _Group] = {}
+        self._failed: tuple[int, BaseException] | None = None
+        self._finished: set[int] = set()
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, device={self.device})"
+
+    @property
+    def rank(self) -> int:
+        """The calling thread's rank (inside :meth:`run` only)."""
+        r = getattr(self._local, "rank", None)
+        if r is None:
+            raise RuntimeError("a collective or axis_index outside "
+                               "Mesh.run: only rank threads have a rank")
+        return r
+
+    @property
+    def local_ranks(self) -> tuple[int, ...]:
+        return tuple(range(self.size))
+
+    def _current_rank(self):
+        return getattr(self._local, "rank", None)
+
     def _group(self, axes: tuple[str, ...]) -> _Group:
         c = self.coords(self.rank)
         fixed = tuple((a, c[a]) for a in self.axis_names if a not in axes)
@@ -155,11 +271,8 @@ class Mesh:
         with self._lock:
             g = self._groups.get(key)
             if g is None:
-                ranges = [range(self.shape[a]) if a in axes else (c[a],)
-                          for a in self.axis_names]
-                g = self._groups[key] = _Group(tuple(sorted(
-                    self.rank_of(**dict(zip(self.axis_names, p)))
-                    for p in itertools.product(*ranges))))
+                g = self._groups[key] = _Group(
+                    self.group_members(axes, self.rank))
         return g
 
     # ---- rendezvous ----------------------------------------------------
@@ -167,12 +280,7 @@ class Mesh:
                   ) -> dict[int, Any]:
         """Deposit ``payload`` and wait for every member of the group's
         deposit; returns rank -> payload."""
-        if torch._C._current_graph_task_id() != -1:
-            raise CollectiveError(
-                f"rank {getattr(self._local, 'rank', None)}: {name} over "
-                f"{'/'.join(axes)} inside an autograd backward (a "
-                f"checkpoint's recompute or a Function.backward): call "
-                f"collectives from the rank thread, between autograd calls")
+        self._guard(name, axes)
         rank, g = self.rank, self._group(axes)
         where = (f"rank {rank} {self.coords(rank)}: {name} over "
                  f"{'/'.join(axes)}")
@@ -221,10 +329,7 @@ class Mesh:
         got = self._exchange(name, axes, payload)
         out = combine(got)
         self._exchange(name + " (release)", axes)
-        with self._lock:
-            self.counts[name] = self.counts.get(name, 0) + 1
-            self.seconds[name] = (self.seconds.get(name, 0.0)
-                                  + time.perf_counter() - t0)
+        self._count(name, t0)
         return out
 
     # ---- collectives ---------------------------------------------------
@@ -257,10 +362,7 @@ class Mesh:
         dimension is the group's size, summed in ascending rank order (JAX's
         ``psum_scatter(scatter_dimension=0, tiled=False)``)."""
         axes = self._axes(axes)
-        if x.shape[0] != self.group_size(axes):
-            raise ValueError(f"psum_scatter over {axes}: dimension 0 of "
-                             f"{tuple(x.shape)} is not the group size "
-                             f"{self.group_size(axes)}")
+        self._check_rows("psum_scatter", x, axes)
         i = self.group_index(axes)
         return self._collective(
             "psum_scatter", axes, x,
@@ -285,10 +387,7 @@ class Mesh:
         ``i``'s ``x``, whose first dimension is the group's size (JAX's
         ``all_to_all(split_axis=0, concat_axis=0, tiled=False)``)."""
         axes = self._axes(axes)
-        n = self.group_size(axes)
-        if x.shape[0] != n:
-            raise ValueError(f"all_to_all over {axes}: dimension 0 of "
-                             f"{tuple(x.shape)} is not the group size {n}")
+        n = self._check_rows("all_to_all", x, axes)
         i = self.group_index(axes)
 
         def swap(got):
@@ -296,34 +395,6 @@ class Mesh:
             return torch.stack([by_index[j][i] for j in range(n)])
 
         return self._collective("all_to_all", axes, x, swap)
-
-    def exchange_over(self, axes) -> Callable[[str, torch.Tensor],
-                                              torch.Tensor]:
-        """``exchange(name, x)``: the collective ``name`` (``all_to_all``,
-        ``all_gather`` stacked, ``psum_scatter``) over ``axes``, the form a
-        stage cut at its exchanges takes (``models/phases.py``)."""
-        axes = self._axes(axes)
-
-        def exchange(name: str, x: torch.Tensor) -> torch.Tensor:
-            if name == "all_gather":
-                return self.all_gather(x, axes, tiled=False)
-            if name not in ("all_to_all", "psum_scatter"):
-                raise ValueError(f"no exchange {name!r}")
-            return getattr(self, name)(x, axes)
-
-        return exchange
-
-    def axis_group(self, axes) -> "AxisGroup":
-        """The calling rank's view of its group over ``axes``: its index,
-        the group's size, ``psum`` and ``pmax`` (what a layer that the
-        reference gives an ``axis_name`` needs; inside :meth:`run`)."""
-        axes = self._axes(axes)
-        return AxisGroup(self, axes, self.group_index(axes),
-                         self.group_size(axes))
-
-    def reset_counts(self) -> None:
-        with self._lock:
-            self.counts, self.seconds = {}, {}
 
     # ---- running a rank program ----------------------------------------
     def run(self, fn: Callable, per_rank_args: Sequence[tuple]) -> list:
@@ -385,7 +456,7 @@ class AxisGroup:
     counterpart of a JAX ``axis_name`` inside ``shard_map``, whose
     ``axis_index`` is :attr:`index`."""
 
-    mesh: Mesh
+    mesh: MeshBase
     axes: tuple[str, ...]
     index: int
     size: int

@@ -43,10 +43,13 @@ without ``--adaptive``), the port stops and says so.
 (``build_trainer`` and its loop): the schedule-table SPMD executor
 (``pipeline/executor.py``) and the ZeRO-1 optimizer on a ``(data ×
 model)`` mesh of ``--devices`` ranks, ``data = devices // stages``.  The
-ranks are threads of this process on one device (``launch/mesh.py``):
-each holds its stage's parameters, its own io parameters and its ZeRO-1
-state, so memory grows with every data replica.  The port's ``--runtime``
-default stays ``actor``; the reference's is ``table``.  The telemetry
+ranks are threads of this process on one device (``launch/mesh.py``), or,
+with ``--procs``, one process each (``launch/procs.py``: spawned here, or
+the world that ``torchrun`` set; ``--dist-backend gloo`` stages CUDA
+payloads through host memory, ``nccl`` needs a card per rank), with the
+same bits: each holds its stage's parameters, its own io parameters and
+its ZeRO-1 state, so memory grows with every data replica.  The port's
+``--runtime`` default stays ``actor``; the reference's is ``table``.  The telemetry
 flags instrument the actor runtime and stop under ``table``, as the
 reference's do; the other actor-only flags stop too.  The enc-dec config
 (seamless-m4t-large-v2) trains under ``table`` only, with ``--seq``
@@ -112,12 +115,14 @@ from repro_torch.pipeline.executor import (
     ExecOptions,
     make_train_fn,
     shard_batch,
+    stage_fns,
 )
 from repro_torch.pipeline.sharding import partition_for
 from repro_torch.pipeline.stagefn import (
     ActorStageProgram,
     StageFnOptions,
     StageFns,
+    microbatch,
 )
 from repro_torch.runtime.adaptive import AdaptiveConfig, AdaptiveScheduler
 from repro_torch.runtime.rrfp import ActorConfig, ActorDriver, Trace, parse_chaos
@@ -146,8 +151,13 @@ class TrainRun:
     #: parameters and optimizer state after the last step)
     trainer: Any = None
     #: ``--runtime table``: each step's mesh collectives, name -> (calls,
-    #: host seconds inside them), summed over the ranks (``Mesh.counts``)
+    #: host seconds inside them), summed over the ranks
+    #: (``MeshBase.counts_over_ranks``)
     collectives: list[dict] = dataclasses.field(default_factory=list)
+    #: ``--procs``: each process's ``rank``, ``coords``, K1/K2
+    #: ``launches``, ``peak_bytes`` of device memory and ``digests`` of its
+    #: replicated stage leaves (``procs.leaf_digests``)
+    ranks: list[dict] = dataclasses.field(default_factory=list)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -523,32 +533,28 @@ def train_actor(args, *, cfg=None, init_params=None,
 # schedule-table executor + ZeRO-1 (--runtime table)
 # ---------------------------------------------------------------------------
 def rank_params(model, mesh, *, seed: int, device) -> tuple[list, list]:
-    """Every rank's own stage module (its ``model`` index's stage) and io
-    module from the seeded init, each data replica a copy.  Under an MoE
-    expert layout over more than one data rank each stage is drawn whole,
-    as on one rank, and each rank keeps its shard of the routed experts
-    (``ArchModel.shard_stage_params``)."""
+    """Each local rank's own stage module (its ``model`` index's stage) and
+    io module from the seeded init, each data replica a copy (a list by
+    rank, None for a rank of another process).  The init draws each stage
+    from its stage and slot, so a process draws exactly what the thread
+    mesh's rank draws.  Under an MoE expert layout over more than one data
+    rank each stage is drawn whole, as on one rank, and each rank keeps its
+    shard of the routed experts (``ArchModel.shard_stage_params``)."""
     data = mesh.shape["data"]
     shard = model.moe_layout != "none" and data > 1
     stage_params: list = [None] * mesh.size
-    sp0 = []
-    for s in range(model.num_stages):
+    io_params: list = [None] * mesh.size
+    for s in sorted({mesh.coords(r)["model"] for r in mesh.local_ranks}):
         full = model.init_stage_params(s, seed=seed, device=device)
-        if not shard:
-            sp0.append(full)
-            continue
-        # each data rank's shard, then the whole stage is freed
-        for i in range(data):
-            stage_params[mesh.rank_of(data=i, model=s)] = (
-                model.shard_stage_params(full, data, i))
-        del full
+        ranks = [r for r in mesh.local_ranks if mesh.coords(r)["model"] == s]
+        for k, r in enumerate(ranks):
+            stage_params[r] = (
+                model.shard_stage_params(full, data, mesh.coords(r)["data"])
+                if shard else full if k == 0 else copy.deepcopy(full))
+        del full  # under a shard layout: each rank kept its shard only
     io0 = model.init_io_params(seed=seed, device=device)
-    io_params = []
-    for r in range(mesh.size):
-        s, first = mesh.coords(r)["model"], mesh.coords(r)["data"] == 0
-        if not shard:
-            stage_params[r] = sp0[s] if first else copy.deepcopy(sp0[s])
-        io_params.append(io0 if r == 0 else copy.deepcopy(io0))
+    for k, r in enumerate(mesh.local_ranks):
+        io_params[r] = io0 if k == 0 else copy.deepcopy(io0)
     return stage_params, io_params
 
 
@@ -557,7 +563,7 @@ def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
                   schedule: str = "rrfp", reduced: bool = True,
                   lr: float = 1e-3, total_steps: int = 1000,
                   device="cuda", cfg=None, init_params=None,
-                  exec_options: dict | None = None) -> dict:
+                  exec_options: dict | None = None, mesh=None) -> dict:
     """The table runtime's model, mesh, per-rank state and ``train_step``
     (port of the reference's ``build_trainer``).
 
@@ -570,6 +576,9 @@ def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
     the routed experts (``ArchModel.shard_stage_params``), so every
     ``data`` starts from the same global weights.
     ``cfg`` replaces the config built from ``arch``/``layers``/``reduced``;
+    ``mesh`` replaces the in-process ``data x stages`` mesh of rank threads
+    (``launch.procs.ProcessMesh``: this process's rank only; the per-rank
+    lists hold None for the others' ranks, and ``device`` is the mesh's);
     ``init_params(model, mesh, device) -> (stage_params, io_params)``
     (per-rank lists) replaces the seeded init; ``exec_options`` replaces
     :class:`ExecOptions` fields (the float32 checks set ``io_grad_dtype``
@@ -577,21 +586,27 @@ def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
     frames unless it sets ``enc_len``).  ``train_step(batch, step)``
     shards a global ``[data * microbatches * mb_rows, seq]`` batch (and,
     enc-dec, its ``[..., enc_len, d]`` frames) over the data axis, runs the
-    executor and the optimizer on every rank (one ``mesh.run``) and
-    returns rank 0's metrics and stats.
+    executor and the optimizer on every local rank (one ``mesh.run``) and
+    returns the first local rank's metrics and stats (``loss`` and
+    ``gnorm`` are reduced over every rank: the same on each).
     """
-    device = resolve_device(str(device))
+    if mesh is None:
+        mesh = make_mesh(data, stages, device=resolve_device(str(device)))
+    elif mesh.shape != {"data": data, "model": stages}:
+        raise ValueError(f"a mesh {mesh.shape} for data {data} x {stages} "
+                         f"stages")
+    device = mesh.device
     if cfg is None:
         cfg = (registry.reduced_config(arch, num_layers=layers)
                if reduced else registry.get_arch(arch))
     model = build(cfg, num_stages=stages)
-    mesh = make_mesh(data, stages, device=device)
     if init_params is None:
         stage_params, io_params = rank_params(model, mesh, seed=0,
                                               device=device)
     else:
         stage_params, io_params = init_params(model, mesh, device)
-    partition = partition_for(model, stage_params[0], io_params[0])
+    first = mesh.local_ranks[0]
+    partition = partition_for(model, stage_params[first], io_params[first])
 
     spec = PipelineSpec(stages, microbatches,
                         split_backward=(schedule == "zb"))
@@ -606,7 +621,8 @@ def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
     exec_fn, batch_specs = make_train_fn(model, table, mesh, opts, partition)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=20, total_steps=total_steps)
     opt_init, opt_update = make_optimizer(model, mesh, partition, opt_cfg)
-    opt_state = mesh.run(opt_init, list(zip(stage_params, io_params)))
+    opt_state = mesh.run(opt_init, mesh.per_rank(
+        lambda r: (stage_params[r], io_params[r])))
 
     def rank_step(sp, io, opt, batch, step):
         metrics, grad_shards, expert_grads = exec_fn(sp, io, batch)
@@ -615,10 +631,9 @@ def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
 
     def train_step(batch: dict, step: int) -> dict:
         shards = shard_batch(mesh, batch, batch_specs)
-        out = mesh.run(rank_step, [
-            (stage_params[r], io_params[r], opt_state[r], shards[r], step)
-            for r in range(mesh.size)])
-        return out[0]
+        out = mesh.run(rank_step, mesh.per_rank(lambda r: (
+            stage_params[r], io_params[r], opt_state[r], shards[r], step)))
+        return out[first]
 
     return dict(
         cfg=cfg, model=model, mesh=mesh, table=table, spec=spec,
@@ -668,22 +683,34 @@ def train_table(args, *, cfg=None, step_hook=None) -> TrainRun:
     """Train with the schedule-table executor and ZeRO-1 AdamW on a
     ``(devices // stages) × stages`` mesh of ranks (port of the
     reference's ``--runtime table`` loop).  ``cfg`` as
-    :func:`build_trainer`'s; ``step_hook(step)`` runs after each step."""
+    :func:`build_trainer`'s; ``step_hook(step)`` runs after each step.
+    With ``--procs`` the ranks are processes (:func:`train_procs`)."""
     if args.arch is None:
         args.arch = "deepseek-7b"
     data = args.devices // args.stages
     if data < 1:
         raise SystemExit(f"--runtime table needs --devices >= --stages "
                          f"({args.devices} < {args.stages})")
+    if args.procs:
+        return train_procs(args, cfg=cfg)
+    return _table_loop(args, None, cfg, step_hook)
+
+
+def _table_loop(args, mesh, cfg, step_hook) -> TrainRun:
+    """The table runtime's loop on ``mesh`` (None: the thread mesh) for
+    this process's ranks; the rank-0 process prints."""
+    data = args.devices // args.stages
     t = build_trainer(
         args.arch, data=data, stages=args.stages, layers=args.layers,
         mb_rows=args.mb_rows, microbatches=args.microbatches, seq=args.seq,
         schedule=args.schedule, reduced=not args.full_size, lr=args.lr,
-        total_steps=args.steps, device=args.device, cfg=cfg)
-    print(f"arch={args.arch} N={t['cfg'].param_count():,} params  "
-          f"mesh=({data}×{args.stages})  schedule={args.schedule}  "
-          f"bubble={t['table'].bubble_fraction():.2f}  "
-          f"device={t['mesh'].device}")
+        total_steps=args.steps, device=args.device, cfg=cfg, mesh=mesh)
+    mesh = t["mesh"]
+    say = print if mesh.local_ranks[0] == 0 else (lambda *a, **k: None)
+    say(f"arch={args.arch} N={t['cfg'].param_count():,} params  "
+        f"mesh=({data}×{args.stages})  schedule={args.schedule}  "
+        f"bubble={t['table'].bubble_fraction():.2f}  device={mesh.device}"
+        + (f"  {mesh!r}" if args.procs else ""))
     run = TrainRun(losses=[], step_seconds=[], trainer=t)
     store = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
     ckpt_every = _or(args.ckpt_every, 10)
@@ -701,24 +728,24 @@ def train_table(args, *, cfg=None, step_hook=None) -> TrainRun:
                            seed=args.seed, step=step,
                            enc_len=t["opts"].enc_len)
 
+    if args.procs:
+        _warm_up(t, make(start_step))
     it = PrefetchIterator(make, start_step=start_step)
+    mesh.sync()  # every process built its ranks: step 0 starts together
     try:
         for _ in range(args.steps - start_step):
             step, arrays = next(it)
-            t["mesh"].reset_counts()
+            mesh.reset_counts()
             t0 = time.perf_counter()
-            m = t["train_step"](_device_batch(arrays, t["mesh"].device),
-                                step)
+            m = t["train_step"](_device_batch(arrays, mesh.device), step)
             loss = float(m["loss"])  # the step's one device sync
             dt = time.perf_counter() - t0
-            run.collectives.append({k: (n, t["mesh"].seconds[k]) for k, n
-                                    in sorted(t["mesh"].counts.items())})
+            run.collectives.append(mesh.counts_over_ranks())
             run.losses.append(loss)
             run.step_seconds.append(dt)
             run.gnorms.append(float(m["gnorm"]))
-            print(f"step {step:4d}  loss {loss:8.4f}  gnorm "
-                  f"{run.gnorms[-1]:7.3f}  lr {m['lr']:.2e}  "
-                  f"{dt*1e3:7.1f} ms")
+            say(f"step {step:4d}  loss {loss:8.4f}  gnorm "
+                f"{run.gnorms[-1]:7.3f}  lr {m['lr']:.2e}  {dt*1e3:7.1f} ms")
             if store and (step + 1) % ckpt_every == 0:
                 t1 = time.perf_counter()
                 store.save(step + 1, _table_ckpt_tree(t),
@@ -732,6 +759,95 @@ def train_table(args, *, cfg=None, step_hook=None) -> TrainRun:
             store.wait()
     finally:
         it.close()
+    return run
+
+
+def _warm_up(t: dict, arrays: dict) -> None:
+    """``--procs``: each rank runs its stage's forward and backward once on
+    the first microbatch of its shard of ``arrays``, before the timed
+    steps, and keeps nothing.  A process pays its own first-call costs
+    (CUDA modules loaded on first launch, cuBLAS plans: ~11 s a process at
+    gpt3 full width on an H100), all processes at once; in step 0 the
+    pipeline would add them up stage after stage (~45 s at 1 x 4).  An
+    exchanging MoE stage exchanges here too, with every rank of its data
+    group in the same order."""
+    mesh, opts, cfg = t["mesh"], t["opts"], t["cfg"]
+    fns = stage_fns(t["model"], mesh, opts)
+    shards = shard_batch(mesh, _device_batch(arrays, mesh.device),
+                         t["batch_specs"])
+
+    def warm(sp, io, shard):
+        stage = mesh.axis_index("model")
+        bm = microbatch(shard, 0, opts.mb_rows)
+        x = torch.zeros((opts.mb_rows, fns.eff_seq, cfg.d_model),
+                        dtype=cfg.dtype, device=mesh.device)
+        fns.forward(stage)(sp, io, None if stage == 0 else x, bm)
+        fns.backward(stage)(sp, io, None if stage == 0 else x, x, bm)
+
+    mesh.run(warm, mesh.per_rank(lambda r: (
+        t["stage_params"][r], t["io_params"][r], shards[r])))
+
+
+def _rank_report(run: TrainRun) -> TrainRun:
+    """What a process of a ``--procs`` run sends back: its rank's run
+    (losses, gnorms, step seconds, collectives over every rank), its K1/K2
+    launches and peak device memory, and its replicated stage leaves'
+    digests (the replica check across processes)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.procs import leaf_digests
+
+    t = run.trainer
+    mesh = t["mesh"]
+    (r,) = mesh.local_ranks
+    cuda = mesh.device.type == "cuda"
+    run.trainer = None
+    run.ranks = [{
+        "rank": r, "coords": mesh.coords(r), "launches": ops.launch_counts(),
+        "peak_bytes": torch.cuda.max_memory_allocated(mesh.device)
+        if cuda else 0,
+        "digests": leaf_digests(t["partition"], t["stage_params"][r])}]
+    return run
+
+
+def _train_world(mesh, args, cfg) -> TrainRun:
+    """One process of ``--procs``: the table loop on its rank."""
+    return _rank_report(_table_loop(args, mesh, cfg, None))
+
+
+def train_procs(args, *, cfg=None) -> TrainRun:
+    """``--runtime table --procs``: the table loop with one process per
+    rank (``launch/procs.ProcessMesh``, ``--dist-backend``): spawned here
+    (``procs.spawn_world``), or this process's rank when ``torchrun`` set
+    the world.  Returns rank 0's run (losses, gnorms, step seconds, each
+    step's collectives summed over the ranks) with every rank's launches,
+    peak memory and digests in ``ranks``.  Runs on the GPU unless ``--device
+    cpu`` was given; the parent frees its CUDA cache before spawning."""
+    from repro_torch.launch import procs
+
+    resolve_device(args.device)
+    backend = args.dist_backend or "gloo"
+    shape = {"data": args.devices // args.stages, "model": args.stages}
+    if procs.in_world():
+        mesh = procs.join_world(shape, device=args.device, backend=backend)
+        try:
+            return _train_world(mesh, args, cfg)
+        finally:
+            procs.leave_world()
+    procs.check_backend(backend, args.device, args.devices)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    print(f"--procs: {args.devices} processes, backend {backend}"
+          + ("; every payload staged through host memory (gloo on CUDA "
+             "tensors)" if backend == "gloo"
+             and torch.device(args.device).type == "cuda" else ""))
+    # each process with this one's intra-op threads: on the CPU the bits
+    # of a GEMM may depend on them
+    runs = procs.spawn_world(_train_world, (args, cfg), args.devices,
+                             shape=shape, device=args.device,
+                             backend=backend,
+                             threads=torch.get_num_threads())
+    run = runs[0]
+    run.ranks = [rr.ranks[0] for rr in runs]
     return run
 
 
@@ -923,6 +1039,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--devices", type=int, default=8,
                     help="--runtime table: ranks of the mesh; data = "
                          "devices // stages")
+    ap.add_argument("--procs", action="store_true",
+                    help="--runtime table: one process per rank "
+                         "(torch.distributed; spawned here, or the world "
+                         "that torchrun set) instead of one thread each")
+    ap.add_argument("--dist-backend", default=None, choices=("gloo", "nccl"),
+                    help="--procs: gloo (default; CUDA payloads staged "
+                         "through host memory) or nccl (one card per rank)")
     ap.add_argument("--workload", default="language",
                     choices=("language", "multimodal"),
                     help="language: linear-chain LM pipeline (default); "
@@ -1043,6 +1166,27 @@ def _check_flags(args) -> None:
                              f"ignores it without)")
 
 
+def _check_procs_flags(args) -> None:
+    """``--procs``: the table runtime only, and a stop for what does not
+    run over processes yet (ROADMAP queue 1)."""
+    if args.dist_backend and not args.procs:
+        raise SystemExit("--dist-backend picks the backend of --procs")
+    if not args.procs:
+        return
+    if args.runtime != "table" or args.workload != "language":
+        raise SystemExit("--procs runs the ranks of --runtime table as "
+                         "processes (language workload)")
+    for flag, on in (("--ckpt-dir", args.ckpt_dir),
+                     ("--ckpt-every", args.ckpt_every is not None),
+                     ("--resume", args.resume), ("--adaptive", args.adaptive),
+                     ("--chaos", args.chaos), ("--recover", args.recover)):
+        if on:
+            raise SystemExit(
+                f"{flag} under --procs: not yet (ROADMAP queue 1: a "
+                f"checkpoint gathers every rank's ZeRO-1 state, and "
+                f"resume, recovery and the adaptive loop build on it)")
+
+
 def _check_table_flags(args) -> None:
     """``--runtime table``: the reference's guards on the telemetry flags,
     and a stop for the other actor-runtime flags (which the reference
@@ -1071,6 +1215,7 @@ def main(argv=None) -> TrainRun:
     args = parser().parse_args(argv)
     if args.workload == "multimodal":
         args.runtime = "actor"  # the DAG only runs on the actor runtime
+    _check_procs_flags(args)
     if args.runtime == "table":
         _check_table_flags(args)
     _check_flags(args)

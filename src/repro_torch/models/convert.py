@@ -248,10 +248,11 @@ def rank_caches_from_reference(model: ArchModel, mesh, cache: dict,
     tensors) under ``specs`` (``pipeline.decode.cache_specs``: a leaf's
     ``(dim, axes)`` in a rank's ``[l_max, ...]`` leaf, or None for a copy
     on every data rank): rank ``r`` holds stage ``coords(r)["model"]`` and,
-    of a sharded leaf, part ``group_index(axes, r)``.  Keys, dtypes and
-    shapes must be ``init_stage_cache``'s (a mismatch raises)."""
-    out = []
-    for r in range(mesh.size):
+    of a sharded leaf, part ``group_index(axes, r)``; a list by rank, of
+    the mesh's local ranks (None for a rank of another process).  Keys,
+    dtypes and shapes must be ``init_stage_cache``'s (a mismatch raises)."""
+    out: list = [None] * mesh.size
+    for r in mesh.local_ranks:
         s = mesh.coords(r)["model"]
 
         def shard(a, spec):
@@ -275,7 +276,7 @@ def rank_caches_from_reference(model: ArchModel, mesh, cache: dict,
         with torch.no_grad():
             tree_map(lambda t, a: _load(t, a, f"rank {r} cache", device),
                      local, part)
-        out.append(local)
+        out[r] = local
     return out
 
 
@@ -286,6 +287,8 @@ def rank_caches_to_reference(model: ArchModel, mesh, caches: list[dict],
     inverse of :func:`rank_caches_from_reference`): a sharded leaf's parts
     concatenated in group-index order, a replicated one from the stage's
     rank of data index 0."""
+    _every_rank_local(mesh, "rank_caches_to_reference")
+
     def stage_leaf(s, spec, *leaves):
         if spec is None:
             return leaves[mesh.rank_of(model=s)]
@@ -338,11 +341,14 @@ def rank_params_from_reference(model: ArchModel, mesh, stage_params_np: dict,
     """Every rank's own stage module (its ``model`` index's stage) and io
     module holding the reference's stacked ``[S, ...]`` weights: each rank
     gets its own copy, as each device holds its own, and of a leaf sharded
-    over ``data`` (the MoE layouts' experts) its data index's shard."""
+    over ``data`` (the MoE layouts' experts) its data index's shard; lists
+    by rank, of the mesh's local ranks (None for a rank of another
+    process)."""
     data = mesh.shape["data"]
-    stage_params, io_params = [], []
+    stage_params: list = [None] * mesh.size
+    io_params: list = [None] * mesh.size
     with torch.no_grad():
-        for r in range(mesh.size):
+        for r in mesh.local_ranks:
             c = mesh.coords(r)
             s = c["model"]
             sp = model.init_stage_params(s, seed=None, device=device,
@@ -356,14 +362,24 @@ def rank_params_from_reference(model: ArchModel, mesh, stage_params_np: dict,
             io = model.init_io_params(seed=None, device=device)
             for name, p in io.named_parameters():
                 _load(p, _leaf(io_params_np, name), name, device)
-            stage_params.append(sp)
-            io_params.append(io)
+            stage_params[r], io_params[r] = sp, io
     return stage_params, io_params
+
+
+def _every_rank_local(mesh, what: str) -> None:
+    """A conversion to the reference's global layout reads every rank's
+    state: on a mesh of processes the other ranks' are elsewhere."""
+    if len(mesh.local_ranks) != mesh.size:
+        raise ValueError(
+            f"{what} reads every rank's state; {mesh!r} holds rank(s) "
+            f"{list(mesh.local_ranks)} only (a gather over processes is "
+            f"ROADMAP queue 1: checkpoints under --procs)")
 
 
 def _gathered(model: ArchModel, mesh, stage_params, value):
     """Per stage, ``value(p)`` of each parameter of its data-index-0 rank,
     a leaf sharded over ``data`` concatenated over the data ranks."""
+    _every_rank_local(mesh, "the reference's global layout")
     data = mesh.shape["data"]
     out = []
     for s in range(model.num_stages):
@@ -422,6 +438,7 @@ def zero1_state_to_reference(model: ArchModel, mesh, partition,
     dp_axes)`` of its ``[1, n]`` rank shards) and
     ``["experts"][leaf]["m"|"v"]`` ``[S, l_max, ...]`` (data shards
     concatenated along their spec's ``data`` dim)."""
+    _every_rank_local(mesh, "zero1_state_to_reference")
     S, dp = model.num_stages, mesh.group_size(dp_axes)
     where: dict[tuple[int, int], int] = {}
     for r in range(mesh.size):
@@ -452,11 +469,12 @@ def zero1_state_from_reference(model: ArchModel, mesh, partition,
                                tree: dict, device,
                                dp_axes: tuple = ("data",),
                                expert_dtype=torch.float32) -> list[dict]:
-    """The inverse of :func:`zero1_state_to_reference`: each rank's state
-    (shards float32, expert state in ``expert_dtype``)."""
+    """The inverse of :func:`zero1_state_to_reference`: each local rank's
+    state (shards float32, expert state in ``expert_dtype``), in a list by
+    rank (None for a rank of another process)."""
     dp = mesh.group_size(dp_axes)
-    states = []
-    for r in range(mesh.size):
+    states: list = [None] * mesh.size
+    for r in mesh.local_ranks:
         s = mesh.coords(r)["model"]
         i = mesh.group_index(dp_axes, r)
         shards = {k: {name: tensor_from_numpy(
@@ -473,7 +491,7 @@ def zero1_state_from_reference(model: ArchModel, mesh, partition,
                         mesh.coords(r)["data"]]
                 experts[k][name] = tensor_from_numpy(a, device).to(
                     expert_dtype)
-        states.append({"shards": shards, "experts": experts})
+        states[r] = {"shards": shards, "experts": experts}
     return states
 
 

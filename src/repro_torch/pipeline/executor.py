@@ -101,11 +101,7 @@ def make_train_fn(model: ArchModel, table: ScheduleTable, mesh,
     bwd_perm = [(i, i - 1) for i in range(1, S)]
     ops_arr = np.asarray(table.ops)
     mbs_arr = np.asarray(table.mbs)
-    fns = StageFns(model, StageFnOptions(
-        mb_rows=mb_rows, seq_len=seq, ce_chunk=opts.ce_chunk,
-        loss_scale=opts.loss_scale, data_size=mesh.shape["data"],
-        moe_layout=model.moe_layout, enc_len=opts.enc_len,
-        exchange=mesh.exchange_over("data")))
+    fns = stage_fns(model, mesh, opts)
     eff_seq = fns.eff_seq
     flags = partition.stage_data_sharded
 
@@ -222,6 +218,16 @@ def make_train_fn(model: ArchModel, table: ScheduleTable, mesh,
     return fn, make_batch_specs(model, opts)
 
 
+def stage_fns(model: ArchModel, mesh, opts: ExecOptions) -> StageFns:
+    """The stage callables of :func:`make_train_fn`'s rank program (a
+    stage that exchanges MoE tokens does so over the ``data`` group)."""
+    return StageFns(model, StageFnOptions(
+        mb_rows=opts.mb_rows, seq_len=opts.seq_len, ce_chunk=opts.ce_chunk,
+        loss_scale=opts.loss_scale, data_size=mesh.shape["data"],
+        moe_layout=model.moe_layout, enc_len=opts.enc_len,
+        exchange=mesh.exchange_over("data")))
+
+
 def grad_shard_specs(model: ArchModel, partition: ParamPartition,
                      opts: ExecOptions) -> dict[str, tuple]:
     """Leaf -> the global layout of its per-leaf ZeRO-1 grad shards: the
@@ -250,21 +256,23 @@ def make_batch_specs(model: ArchModel, opts: ExecOptions
     return specs
 
 
-def shard_batch(mesh, batch: dict, specs: dict) -> list[dict]:
-    """Each rank's copy of its data shard of a global batch (rows split
-    evenly over the spec's axes, in group-index order; a spec None copies
-    the whole entry)."""
-    out = []
-    for r in range(mesh.size):
-        shard = {}
-        for k, spec in specs.items():
-            v = batch[k]
-            if spec is None:
-                shard[k] = v.clone()
-                continue
-            dim, axes = spec
-            n = v.shape[dim] // mesh.group_size(axes)
-            i = mesh.group_index(axes, r)
-            shard[k] = v.narrow(dim, i * n, n).clone()
-        out.append(shard)
-    return out
+def shard_batch(mesh, batch: dict, specs: dict) -> list:
+    """Each local rank's copy of its data shard of a global batch (rows
+    split evenly over the spec's axes, in group-index order; a spec None
+    copies the whole entry), in a list by rank (None for a rank of another
+    process)."""
+    return mesh.per_rank(lambda r: _shard(mesh, batch, specs, r))
+
+
+def _shard(mesh, batch: dict, specs: dict, r: int) -> dict:
+    shard = {}
+    for k, spec in specs.items():
+        v = batch[k]
+        if spec is None:
+            shard[k] = v.clone()
+            continue
+        dim, axes = spec
+        n = v.shape[dim] // mesh.group_size(axes)
+        i = mesh.group_index(axes, r)
+        shard[k] = v.narrow(dim, i * n, n).clone()
+    return shard

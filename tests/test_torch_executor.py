@@ -42,7 +42,13 @@ weights (carried across with ``models.convert``) and the same batches:
   (``ep``: 8 whole experts a rank): loss, grad shards, every routed
   expert's grad, params after 2 steps and the 2-step update, at the
   float32 yardsticks; and a table checkpoint of the ``ep`` run holds the
-  reference's global shapes and restores every rank's shard bitwise.
+  reference's global shapes and restores every rank's shard bitwise;
+* the mesh of processes (``launch/procs.py``, gloo, four processes): the
+  reference also runs step 0 of reduced gpt3 on a 2 x 2 mesh (2 stages of
+  4 layers, float32, 1f1b); the port runs it with one process per rank,
+  each loading its own rank's weights with
+  ``convert.rank_params_from_reference``: the loss within 1e-4 relative
+  and every grad shard within 1e-4 of its leaf's max |g|.
 """
 import dataclasses
 import json
@@ -173,6 +179,24 @@ for layout, experts in moe_experts.items():
                                 num_experts=experts)), S).moe_layout == layout
     run(moe_arch, moe_layers, ("float32",), f"moe_{layout}_",
         experts=experts)
+
+# step 0 of gpt3 on a 2 x 2 mesh (the port's mesh of processes)
+cfg = registry.reduced_config("paper-gpt3-large", num_layers=LAYERS)
+model = build(cfg, num_stages=2)
+key = jax.random.key(0)
+sp = model.init_stage_params(key)
+io = model.init_io_params(jax.random.fold_in(key, 1))
+part = partition_for(model, sp, io)
+mesh22 = make_mesh(2, 2)
+table = schedules.BUILDERS["1f1b"](PipelineSpec(2, M))
+opts = ExecOptions(mb_rows=ROWS, seq_len=SEQ, loss_scale=1.0 / (B * SEQ),
+                   io_grad_dtype=jnp.float32, flat_dtype=jnp.float32)
+fn = jax.jit(make_train_fn(model, table, mesh22, opts, part)[0])
+metrics, gs, _ = fn(sp, io, synth_batch(cfg, B, SEQ, seed=0, step=0))
+np.savez(os.path.join(out, "procs_2x2.npz"), loss0=np.asarray(
+    metrics["loss"]), **{"grad" + k: np.asarray(v.astype(jnp.float32))
+                         for k, v in gs.items()},
+    **leaves("sp", sp), **leaves("io", io))
 
 # the reference launcher's table loop, checkpointing at step 2
 sys.argv = ["train"] + table_args + ["--ckpt-dir", os.path.join(out, "ck"),
@@ -513,3 +537,39 @@ def test_port_checkpoint_has_the_reference_leaves(reference, tmp_path):
             np.load(reference / "ck" / "step_2" / "shard_0.npz") as b:
         for k in theirs["leaves"]:
             assert a[k].shape == b[k].shape, k
+
+
+def test_a_mesh_of_processes_matches_the_reference(reference):
+    """Step 0 of reduced gpt3 on a 2 x 2 mesh of four processes (gloo),
+    each rank loading its own weights from the reference's
+    (``convert.rank_params_from_reference`` on its ``ProcessMesh``): the
+    loss and every ZeRO-1 grad shard against the reference's 2 x 2
+    ``make_train_fn``, at the float32 yardsticks."""
+    from repro_torch.launch import mesh_probes
+    from repro_torch.launch.procs import spawn_world
+
+    ref = np.load(reference / "procs_2x2.npz")
+    cfg = registry.reduced_config("paper-gpt3-large", LAYERS)
+    f32 = dict(io_grad_dtype=torch.float32, flat_dtype=torch.float32)
+    got = mesh_probes.merge(spawn_world(
+        mesh_probes.reference_step,
+        (cfg, "1f1b", M, ROWS, SEQ, _tree(ref, "sp"), _tree(ref, "io"), f32),
+        4, shape={"data": 2, "model": 2}, device="cpu", deadline=60.0,
+        threads=1))
+    want = float(ref["loss0"])
+    for r in range(4):
+        assert abs(got[r]["loss"] - want) <= TOL * abs(want), r
+    model = build(cfg, num_stages=2)
+    mesh = make_mesh(2, 2, device="cpu")
+    sps, ios = rank_params_from_reference(model, mesh, _tree(ref, "sp"),
+                                          _tree(ref, "io"), "cpu")
+    part = partition_for(model, sps[0], ios[0])
+    grads = zero1_state_to_reference(model, mesh, part, [
+        {"shards": {k: {"g": g} for k, g in got[r]["grads"].items()},
+         "experts": {}} for r in range(4)])["shards"]
+    want_keys = [k[4:] for k in ref.files if k.startswith("grad")]
+    assert sorted(grads) == sorted(want_keys)
+    for k in want_keys:
+        a, b = grads[k]["g"].astype(np.float32), ref["grad" + k]
+        assert a.shape == b.shape, k
+        assert float(np.abs(a - b).max()) <= TOL * float(np.abs(b).max()), k
