@@ -33,9 +33,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    backward, every gradient compared); and the same for serving: seamless
    with 2 + 2 layers, 4 greedy tokens, then one more pass whose last
    hidden state is compared; and one step of the schedule-table executor
-   (``--runtime table``: gpt3 at full width cut to 4 layers, seq 256, a
-   2 x 4 mesh of ranks; seamless cut to 2 encoder + 2 decoder layers, 256
-   tokens and 384 encoder frames, 1 x 2; deepseek-moe cut to its dense
+   (``--runtime table``: gpt3 at full width cut to 4 layers, seq 128, a
+   1 x 4 mesh of ranks; seamless cut to 2 encoder + 2 decoder layers, 128
+   tokens and 192 encoder frames, 1 x 2; deepseek-moe cut to its dense
    and first MoE layer, ``ep`` on 2 x 2), the loss, every ZeRO-1 grad
    shard and every routed expert's grad compared; and the MoE ``tp``
    layout at the level of the layer (reduced deepseek-moe, 8 experts)
@@ -48,19 +48,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    states against the CPU mesh;
 5. the main paths, each through ``repro_torch.launch.train_actor`` (actor
    training, full width, 4 stages, 8 microbatches of 1 x 2048 tokens,
-   bf16): ``paper-gpt3-large`` hint bf for 3 steps, then ``--hint bfw
-   --split-backward`` for 2; ``zamba2-1.2b`` bf for 3 steps, then bfw for
-   1; ``deepseek-moe-16b`` cut to 4 layers (``cfg=registry.cut_depth``:
-   the dense layer and 3 MoE layers) bf for 3, bfw for 2; the language
-   ``qwen2-vl-2b`` (M-RoPE) bf for 2, bfw for 1; ``xlstm-350m`` cut to 8
-   layers bf for 1; the multimodal DAG (``--workload
-   multimodal``, qwen2-vl-2b full width) bf for 3 steps, bfw for 2, and 2
+   bf16): ``paper-gpt3-large`` hint bf for 2 steps, then ``--hint bfw
+   --split-backward`` for 1; ``zamba2-1.2b`` cut to 20 layers bf for 1
+   step, then bfw for 1; ``deepseek-moe-16b`` cut to 4 layers
+   (``cfg=registry.cut_depth``: the dense layer and 3 MoE layers) bf for
+   1, bfw for 1; the language ``qwen2-vl-2b`` (M-RoPE) cut to 16 layers
+   bf for 1, bfw for 1; ``xlstm-350m`` cut to 8
+   layers bf for 1 step of 2 microbatches; the multimodal DAG (``--workload
+   multimodal``, qwen2-vl-2b full width) bf for 2 steps, bfw for 1, and 2
    bf steps with the reference's full-size encoder settings (encoder
    microbatches of ~2048 tokens); right after the language paths, the
    schedule-table executor with ZeRO-1 (``--runtime table``,
    ``phase_table_path``): gpt3 on a 1 x 4 mesh of 8 microbatches under
-   1f1b, gpipe, zb and rrfp, and on a 2 x 4 mesh of 4
-   microbatches per data rank under 1f1b, each run's K1 and K2 launches
+   1f1b (2 steps), gpipe, zb and rrfp (1 step each), and on a 2 x 4 mesh
+   of 4 microbatches per data rank under 1f1b (1 step), each run's K1 and
+   K2 launches
    exactly as ``table_launches`` counts them, its step-0 loss within 1e-4
    of the actor bf run's, the 2 x 4 run's data replicas bitwise equal;
    then (``phase_moe_table_path``) ``deepseek-moe-16b`` cut to 4 layers
@@ -73,21 +75,29 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    processes (``launch/procs.py``, one process per rank, gloo with its
    payloads staged through host memory): every collective on CUDA
    tensors in a 2 x 2 world of four processes bitwise the thread mesh's;
-   gpt3 1f1b with ``--procs`` on 1 x 4, the thread 1 x 4 run again (in
-   turns; the same bits as the first), gpt3 1f1b ``--procs`` on 2 x 4
-   (eight processes) and deepseek-moe ``ep`` 1f1b ``--procs`` on 2 x 2
-   (cut to 2 layers, and a thread run of that cut beside it), each with its thread run's losses, gnorms and every rank's replicated
-   parameters (digests), K1/K2 launches summed over the processes as
-   ``table_launches`` counts them, each process's peak memory and the
-   card's ``memory.used`` printed; ``--dist-backend nccl`` with 4 ranks on
-   one card stops before a world starts; then the enc-dec ``seamless-m4t-large-v2`` at full width and depth
-   (24 + 24 layers) through ``--runtime table`` on a 1 x 4 mesh, 8
+   gpt3 1f1b with ``--procs`` on 1 x 4 for 3 steps saving a table
+   checkpoint at step 2 (18.9 GB, gathered through rank 0's host), the
+   thread 1 x 4 run again for 3 steps (in turns; the same bits as the
+   first and as the process run) whose step-2
+   checkpoint tree every leaf of the file must equal (sha256), ``--procs
+   --resume`` from it (step 2 bitwise the thread run's; bytes, gather,
+   write and restore seconds and each process's host RSS printed), gpt3
+   1f1b ``--procs`` on 2 x 4 (eight processes, 1 step) and deepseek-moe
+   ``ep`` 1f1b ``--procs`` on 2 x 2 (cut to 2 layers, 1 step, and a thread
+   run of that cut beside it), each with its thread run's losses, gnorms
+   and every rank's replicated parameters (digests), K1/K2 launches
+   summed over the processes as ``table_launches`` counts them, each
+   process's peak memory and the card's ``memory.used`` printed;
+   ``--dist-backend nccl`` with 4 ranks on one card stops before a world
+   starts; then the enc-dec ``seamless-m4t-large-v2`` at full width and
+   depth (24 + 24 layers) through ``--runtime table`` on a 1 x 4 mesh, 8
    microbatches of 2048 decoder tokens and 2048 encoder frames, 1f1b
-   twice (bitwise), its launches as ``table_launches`` counts them;
+   twice (1 step each, bitwise), its launches as ``table_launches``
+   counts them;
    then the cell matrix (``phase_cells_path``, ROADMAP 18d):
    ``paper-gpt3-large`` x ``train_4k`` planned by ``launch.cells`` on
-   1 x 4, its 256 rows cut to 8 microbatches of 1 x 4096, two steps of
-   ``build_cell``'s step function with ZeRO-1 AdamW, step 0's loss and
+   1 x 4, its 256 rows cut to 8 microbatches of 1 x 4096, one step of
+   ``build_cell``'s step function with ZeRO-1 AdamW, its loss and
    grad shards bit for bit ``build_trainer``'s executor's, launches as
    ``table_launches`` counts them; a mid stage's F and B timed against
    ``analysis/roofline.py``'s time for them (none may be faster); and the
@@ -114,14 +124,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    weights and caches (the ``sp_mode`` run's bits), each run's ms a step,
    peak memory, launches and collectives a step printed;
 6. right after the language main paths (``phase_runtime_flags``), the
-   runtime flags on paper-gpt3-large full size: telemetry
+   runtime flags on paper-gpt3-large at full width cut to 4 layers (1 a
+   stage): telemetry
    (``--metrics-report``, ``--explain``, ``--export-perfetto``, its step
    time against runs without it, in turns), a checkpoint write and
    ``--resume``, ``--recover`` from a killed stage (live params, then a
    checkpoint), and the adaptive hint loop, each held against its unfailed
    or uninterrupted run (bitwise, or within the spread of two identical
-   runs, printed).  It needs about 12 GB of free disk under the temporary
-   directory for one 10 GB checkpoint, removed at the end.
+   runs, printed).  It needs about 4.5 GB of free disk under the temporary
+   directory for one 3.2 GB checkpoint, removed at the end (and, earlier,
+   21 GB for ``phase_procs_path``'s 18.9 GB one, removed before).
+
+Each phase prints its wall time as it ends (``phase <name>: <s> s``), and
+the run prints every phase, longest first, before its closing lines.
 
 The last three lines are the card, the per-kernel JSON record and the
 result JSON.  A copy of the record goes to ``chiprun_out/chip_smoke.json``.
@@ -249,38 +264,41 @@ BFW = ["--hint", "bfw", "--split-backward"]
 #: ``registry.cut_depth``, through ``train_actor(args, cfg=...)``)
 MAIN_PATHS = [
     ("paper-gpt3-large",
-     [("bf", ["--steps", "3", "--hint", "bf"]),
-      ("bfw", ["--steps", "2"] + BFW)],
-     ("flash_attention_fwd", "rmsnorm"), None),
-    ("zamba2-1.2b",
-     [("bf", ["--steps", "3", "--hint", "bf"]),
+     [("bf", ["--steps", "2", "--hint", "bf"]),
       ("bfw", ["--steps", "1"] + BFW)],
-     ("flash_attention_fwd", "rmsnorm", "ssd_scan"), None),
+     ("flash_attention_fwd", "rmsnorm"), None),
+    # cut to 20 layers (5 a stage, 4 shared-block applications)
+    ("zamba2-1.2b",
+     [("bf", ["--steps", "1", "--hint", "bf"]),
+      ("bfw", ["--steps", "1"] + BFW)],
+     ("flash_attention_fwd", "rmsnorm", "ssd_scan"), 20),
     # the dense first layer and 3 MoE layers, one per stage: 2.27e9
     # parameters at ~14 B each on the card (bf16 weights and grads, float32
     # m and v); the 28 layers do not fit one card
     ("deepseek-moe-16b",
-     [("bf", ["--steps", "3", "--hint", "bf"]),
-      ("bfw", ["--steps", "2"] + BFW)],
+     [("bf", ["--steps", "1", "--hint", "bf"]),
+      ("bfw", ["--steps", "1"] + BFW)],
      ("flash_attention_fwd", "rmsnorm"), 4),
     # the language workload: embeddings in, M-RoPE positions (synth_batch's
-    # three equal streams), 28 layers
+    # three equal streams), cut from 28 layers to 16 (4 a stage)
     ("qwen2-vl-2b",
-     [("bf", ["--steps", "2", "--hint", "bf"]),
+     [("bf", ["--steps", "1", "--hint", "bf"]),
       ("bfw", ["--steps", "1"] + BFW)],
-     ("flash_attention_fwd", "rmsnorm"), None),
+     ("flash_attention_fwd", "rmsnorm"), 16),
     # 7 mLSTM + 1 sLSTM layers (the 7:1 pattern's first block), bf for 1
-    # step: the sLSTM's time loop is host-bound, 51-58 s a step with one
-    # sLSTM layer on one H100 80GB HBM3 at 700 W (bfw 89 s); the full
-    # depth holds three, and a stage waited past the 120 s deadlock guard
-    ("xlstm-350m", [("bf", ["--steps", "1", "--hint", "bf"])],
+    # step of 2 microbatches: the sLSTM's time loop is host-bound and runs
+    # once a microbatch, 51-58 s a step of 8 with one sLSTM layer on one
+    # H100 80GB HBM3 at 700 W (bfw 89 s); the full depth holds three, and
+    # a stage waited past the 120 s deadlock guard
+    ("xlstm-350m",
+     [("bf", ["--steps", "1", "--hint", "bf", "--microbatches", "2"])],
      ("rmsnorm",), 8),
 ]
 #: the multimodal DAG (qwen2-vl-2b full width, 2 layers per stage: 1
 #: encoder stage, the text stage, fusion + 1 LM stage) through the launcher
 MM_ARGS = ["--workload", "multimodal", "--arch", "qwen2-vl-2b"] + COMMON_ARGS
-MM_RUNS = [("bf", ["--steps", "3", "--hint", "bf"]),
-           ("bfw", ["--steps", "2"] + BFW)]
+MM_RUNS = [("bf", ["--steps", "2", "--hint", "bf"]),
+           ("bfw", ["--steps", "1"] + BFW)]
 #: the reference launcher's full-size encoder settings for its cost model
 #: (repro/launch/train.py:217-220): the real-encoder run's config
 MM_REAL_ENCODER = dict(text_seq=512, mean_enc_tokens=2048,
@@ -1158,11 +1176,13 @@ def phase_main_path():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
+            t0 = time.perf_counter()
             run = train.train_actor(train.parser().parse_args(base + extra),
                                     cfg=cfg)
             counts = ops.launch_counts()
             steps = len(run.losses)
-            print(f"  losses {run.losses}  step seconds {run.step_seconds}  "
+            print(f"  {time.perf_counter() - t0:.1f} s wall  "
+                  f"losses {run.losses}  step seconds {run.step_seconds}  "
                   f"launches {counts} "
                   f"({ {k: v / steps for k, v in counts.items()} } per step)"
                   f"  peak memory "
@@ -1201,21 +1221,22 @@ def phase_main_path():
 #: the table runtime's runs (phase_table_path): paper-gpt3-large at full
 #: width, 4 stages, 1 x 2048-token microbatches; (a) a 1 x 4 mesh of 8
 #: microbatches, the actor runs' exact batch of 16,384 tokens, under each
-#: schedule, 1f1b twice; (b) a 2 x 4 mesh (ZeRO-1 over two data ranks) of
-#: 4 microbatches per data rank, the same 16,384 tokens
+#: schedule, 1f1b for 2 steps (``phase_procs_path`` runs it again), the
+#: others for 1; (b) a 2 x 4 mesh (ZeRO-1 over two data ranks) of 4
+#: microbatches per data rank, the same 16,384 tokens, 1 step
 TABLE_ARGS = ["--runtime", "table", "--arch", "paper-gpt3-large",
               "--full-size", "--stages", "4", "--mb-rows", "1", "--seq",
               "2048", "--device", "cuda"]
 TABLE_RUNS = [("table 1f1b", ["--devices", "4", "--microbatches", "8",
                               "--schedule", "1f1b", "--steps", "2"]),
               ("table gpipe", ["--devices", "4", "--microbatches", "8",
-                               "--schedule", "gpipe", "--steps", "2"]),
+                               "--schedule", "gpipe", "--steps", "1"]),
               ("table zb", ["--devices", "4", "--microbatches", "8",
-                            "--schedule", "zb", "--steps", "2"]),
+                            "--schedule", "zb", "--steps", "1"]),
               ("table rrfp", ["--devices", "4", "--microbatches", "8",
-                              "--schedule", "rrfp", "--steps", "2"]),
+                              "--schedule", "rrfp", "--steps", "1"]),
               ("table 1f1b 2x4", ["--devices", "8", "--microbatches", "4",
-                                  "--schedule", "1f1b", "--steps", "2"])]
+                                  "--schedule", "1f1b", "--steps", "1"])]
 #: relative tolerance of a table run's step-0 loss against the actor bf
 #: run's (same weights, same batch; the sums over microbatches and ranks
 #: run in another order)
@@ -1281,13 +1302,15 @@ def table_launches(model, table, data: int) -> dict[str, int]:
 
 
 #: the small table steps (arch, layers, data, stages, seq, enc_len):
-#: gpt3 cut to 4 layers on 2 x 4; seamless cut to 2 encoder + 2 decoder
-#: layers on 1 x 2 with 384 encoder frames against 256 tokens (the
+#: gpt3 cut to 4 layers on 1 x 4; seamless cut to 2 encoder + 2 decoder
+#: layers on 1 x 2 with 192 encoder frames against 128 tokens (the
 #: cross-attention's sq != sk); deepseek-moe cut to its dense layer and
-#: one MoE layer on 2 x 2 (``ep``: 32 of the 64 experts a data rank)
-SMALL_TABLES = [("paper-gpt3-large", 4, 2, 4, 256, 0),
-                ("seamless-m4t-large-v2", 4, 1, 2, 256, 384),
-                ("deepseek-moe-16b", 2, 2, 2, 256, 0)]
+#: one MoE layer on 2 x 2 (``ep``: 32 of the 64 experts a data rank; the
+#: data axis's reduce-scatter is held here).  Their CPU halves, float32
+#: at full width on the host, set the phase's time
+SMALL_TABLES = [("paper-gpt3-large", 4, 1, 4, 128, 0),
+                ("seamless-m4t-large-v2", 4, 1, 2, 128, 192),
+                ("deepseek-moe-16b", 2, 2, 2, 128, 0)]
 
 
 def phase_small_table():
@@ -1479,9 +1502,10 @@ def moe_tp_layer():
           f"their max (tolerance {TOL_MM:g}); two launches bitwise  ok")
 
 
-def table_run(label, name, argv, cfg=None):
-    """One ``--runtime table`` run, ``train.main(argv)`` (with ``cfg``,
-    ``train_table(args, cfg=cfg)``, as the launcher runs it), its launch
+def table_run(label, name, argv, cfg=None, step_hook=None):
+    """One ``--runtime table`` run, ``train.main(argv)`` (with ``cfg`` or
+    ``step_hook``, ``train_table(args, cfg=cfg, step_hook=step_hook)``, as
+    the launcher runs it), its launch
     counts zeroed just before and read just after: finite losses and
     gnorms, and K1 and K2 launched exactly as ``table_launches`` counts.
     Prints the mesh's collectives per step (every rank's calls).  Returns
@@ -1498,12 +1522,13 @@ def table_run(label, name, argv, cfg=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    if cfg is None:
+    t0 = time.perf_counter()
+    if cfg is None and step_hook is None:
         run = train.main(argv)
     else:
         args = train.parser().parse_args(argv)
         train._check_table_flags(args)
-        run = train.train_table(args, cfg=cfg)
+        run = train.train_table(args, cfg=cfg, step_hook=step_hook)
     counts = ops.launch_counts()
     mem = torch.cuda.max_memory_allocated()
     t = run.trainer
@@ -1511,7 +1536,8 @@ def table_run(label, name, argv, cfg=None):
     want = {k: steps * v for k, v in table_launches(
         t["model"], t["table"], t["mesh"].shape["data"]).items()}
     tokens = t["batch_size"] * t["seq"]
-    print(f"  losses {run.losses}  gnorms {run.gnorms}  step seconds "
+    print(f"  {time.perf_counter() - t0:.1f} s wall  losses {run.losses}  "
+          f"gnorms {run.gnorms}  step seconds "
           f"{run.step_seconds}  launches {counts} (from the code "
           f"{want})  peak memory {mem / 2**30:.2f} GiB")
     for i, coll in enumerate(run.collectives):
@@ -1534,12 +1560,14 @@ def table_run(label, name, argv, cfg=None):
 
 
 def same_runs(label, a, b) -> None:
-    """Two runs of one command: the same loss and gnorm bits."""
-    if (a.losses, a.gnorms) != (b.losses, b.gnorms):
+    """Two runs of one command: the same loss and gnorm bits over the
+    steps both ran."""
+    n = min(len(a.losses), len(b.losses))
+    if (a.losses[:n], a.gnorms[:n]) != (b.losses[:n], b.gnorms[:n]):
         raise AssertionError(f"two {label} runs differ: {a.losses} "
                              f"{a.gnorms} vs {b.losses} {b.gnorms}")
-    print(f"  two {label} runs: the same bits over {len(b.losses)} steps "
-          f"(losses {b.losses}, gnorms {b.gnorms})")
+    print(f"  two {label} runs: the same bits over {n} steps "
+          f"(losses {b.losses[:n]}, gnorms {b.gnorms[:n]})")
 
 
 def phase_table_path(actor_runs):
@@ -1676,11 +1704,12 @@ def phase_moe_table_path():
 
 #: the table runtime with one process per rank (phase_procs_path): the
 #: 1f1b runs of TABLE_RUNS (1 x 4 and 2 x 4) again with ``--procs`` (gloo:
-#: payloads staged through host memory)
+#: payloads staged through host memory); the 1 x 4 run takes 3 steps and
+#: saves a table checkpoint at step 2 (``procs_checkpoint``)
 PROCS_RUNS = [("table 1f1b", ["--devices", "4", "--microbatches", "8",
                               "--schedule", "1f1b", "--steps", "2"]),
               ("table 1f1b 2x4", ["--devices", "8", "--microbatches", "4",
-                                  "--schedule", "1f1b", "--steps", "2"])]
+                                  "--schedule", "1f1b", "--steps", "1"])]
 #: (c)'s depth, on both sides of the comparison: four processes of the
 #: MOE_TABLE_LAYERS model peak at 16.6-17.2 GiB each (67.5 GiB together),
 #: and with five CUDA contexts and each allocator's reserve they filled
@@ -1688,6 +1717,12 @@ PROCS_RUNS = [("table 1f1b", ["--devices", "4", "--microbatches", "8",
 #: first B in another); 2 layers, the dense one and one MoE layer, one a
 #: stage, keep the ``ep`` exchanges of the MoE stage
 MOE_PROCS_LAYERS = 2
+#: free disk (b)'s ``--procs`` checkpoint needs: one step directory of
+#: gpt3's table checkpoint on 4 stages, 679,550,976 stage and 154,535,424
+#: io parameters as float32, and ZeRO-1's master, m and v of the stage
+#: leaves and of each stage's io copy: 4 x (834,086,400 + 3 x (679,550,976
+#: + 4 x 154,535,424)) = 18.9 GB
+PROCS_CKPT_FREE_BYTES = 21e9
 #: the mesh's collectives in a world of four processes on CUDA tensors
 PROCS_COLLECTIVES = [("collectives float32", "collectives", (0, "float32")),
                      ("collectives bfloat16", "collectives",
@@ -1699,8 +1734,13 @@ def phase_procs_path(runs):
     process per rank, gloo), against the thread mesh's runs of the same
     call: (a) every collective on CUDA tensors in a 2 x 2 world, bitwise
     the thread mesh's (``launch/mesh_probes.collectives``); (b) gpt3 1f1b
-    with ``--procs`` on 1 x 4, the thread run once more (in turns: its
-    step time, and the same bits as the first), then 2 x 4: losses,
+    with ``--procs`` on 1 x 4 for 3 steps, saving a table checkpoint at
+    step 2 (every rank's state gathered through rank 0's host), the thread
+    run once more for 3 steps (in turns: its step time, the first run's
+    bits, the process run's bits) whose step-2 checkpoint tree every leaf
+    of the file must equal, and ``--procs --resume`` from the file, whose
+    step 2 must be both runs' bits (``procs_checkpoint``), then 2 x 4:
+    losses,
     gnorms and every rank's replicated parameters (digests) bitwise the
     thread runs', K1/K2 launches summed over the processes as
     ``table_launches`` counts; (c) deepseek-moe ``ep`` cut to
@@ -1709,6 +1749,8 @@ def phase_procs_path(runs):
     memory, the card's ``memory.used`` during the run and both meshes'
     step times are printed."""
     import gc
+    import shutil
+    import tempfile
 
     import torch
 
@@ -1736,19 +1778,26 @@ def phase_procs_path(runs):
           f"with the spawn)")
 
     arch = "paper-gpt3-large"
-    for name, extra in PROCS_RUNS:
-        run, counts, mem = procs_run(arch, name, TABLE_ARGS + extra)
-        thread = runs[arch, name][0]
-        same_procs_bits(f"{arch} {name}", run, thread)
-        out[arch, name + " procs"] = (run, counts, mem)
-        if name == "table 1f1b":  # the thread mesh again, in turns
-            again, c2, m2 = table_run(arch, name + " again",
-                                      TABLE_ARGS + extra)
-            again.trainer = None
-            same_runs("table 1f1b", thread, again)
-            out[arch, name + " again"] = (again, c2, m2)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_procs_"))
+    try:
+        for name, extra in PROCS_RUNS:
+            thread = runs[arch, name][0]
+            if name != "table 1f1b":
+                run, counts, mem = procs_run(arch, name, TABLE_ARGS + extra)
+                same_procs_bits(f"{arch} {name}", run, thread)
+                out[arch, name + " procs"] = (run, counts, mem)
+                continue
+            free = shutil.disk_usage(tmp).free
+            if free < PROCS_CKPT_FREE_BYTES:
+                raise AssertionError(f"{tmp}: {free / 1e9:.1f} GB free, the "
+                                     f"--procs checkpoint needs "
+                                     f"{PROCS_CKPT_FREE_BYTES / 1e9:.0f}")
+            out.update(procs_checkpoint(arch, name, TABLE_ARGS + extra,
+                                        tmp / "ckpt", thread))
             gc.collect()
             torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for name in ("table 1f1b", "table 1f1b again", "table 1f1b 2x4"):
         r = (out.get((arch, name)) or runs[arch, name])[0]
         p = out.get((arch, name + " procs"), (None,))[0]
@@ -1758,7 +1807,7 @@ def phase_procs_path(runs):
     moe = "deepseek-moe-16b"
     cfg = registry.cut_depth(moe, MOE_PROCS_LAYERS)
     name = f"table 1f1b {MOE_PROCS_LAYERS} layers"
-    argv = MOE_TABLE_ARGS + ["--schedule", "1f1b"]
+    argv = with_flag(MOE_TABLE_ARGS + ["--schedule", "1f1b"], "--steps", "1")
     thread, c2, m2 = table_run(moe, name, argv, cfg=cfg)
     t = thread.trainer
     if t["model"].moe_layout != "ep":
@@ -1826,8 +1875,9 @@ def procs_run(arch, name, argv, cfg=None):
     torch.cuda.empty_cache()
     print(f"  this process before the spawn: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
-          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; card "
-          f"memory.used {card('memory.used')}")
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, host "
+          f"RSS {host_rss() / 2**30:.2f} GiB; card memory.used "
+          f"{card('memory.used')}")
     sampler = threading.Thread(target=sample, daemon=True)
     sampler.start()
     t0 = time.perf_counter()
@@ -1854,8 +1904,9 @@ def procs_run(arch, name, argv, cfg=None):
           f"{run.step_seconds}  launches summed over {len(run.ranks)} "
           f"processes {counts} (from the code {want}: {steps} steps and the "
           f"warm-up's {warm})  {wall:.1f} s with the spawn")
-    print("  peak memory a process (GiB): "
-          + ", ".join(f"rank {r['rank']} {r['peak_bytes'] / 2**30:.2f}"
+    print("  peak memory a process (GiB, device / host RSS): "
+          + ", ".join(f"rank {r['rank']} {r['peak_bytes'] / 2**30:.2f} / "
+                      f"{r['peak_rss_bytes'] / 2**30:.2f}"
                       for r in run.ranks)
           + f"; sum {sum(peaks) / 2**30:.2f}; card memory.used at most "
           f"{max(used, default=0)} MiB")
@@ -1879,6 +1930,137 @@ def procs_run(arch, name, argv, cfg=None):
         print(f"  the {data} data replicas' replicated parameters: the same "
               f"digests in every process")
     return run, counts, max(peaks)
+
+
+def procs_checkpoint(arch, name, argv, ckpt, thread) -> dict:
+    """(b)'s 1 x 4 run with a table checkpoint: ``argv`` with ``--procs
+    --steps 3 --ckpt-every 2`` saves ``ckpt/step_2``, gathered through
+    rank 0's host and written while step 2 runs.  The thread mesh runs
+    ``argv`` again, in turns, for 3 steps (its first 2 the first thread
+    run's bits, ``thread``; all 3 the process run's, every rank's
+    parameters included) and keeps, at step 2, each leaf's digest of its
+    ``train._table_ckpt_tree`` on the host (writing nothing); every leaf of
+    the file must have its digest.  Then ``--procs --steps 3 --resume``
+    runs step 2 only, and its loss and gnorm must be both runs' step 2,
+    bitwise.  Prints the bytes, the gather (moves and conversion), write
+    and restore seconds, each process's peak host RSS and device peak and
+    the card's largest ``memory.used``, by the card's name and power
+    limit."""
+    import gc
+
+    from repro_torch.launch import train
+
+    smi = card()
+    argv = with_flag(argv, "--steps", "3")
+    saver, counts, mem = procs_run(arch, name, argv + [
+        "--ckpt-dir", str(ckpt), "--ckpt-every", "2"])
+    (save,) = [e for e in saver.ckpt_log if e["op"] == "save"]
+    if save["step"] != 2:
+        raise AssertionError(f"{arch} {name} --procs saved {save}")
+    print(f"  --procs checkpoint of step 2 ({smi}): {save['bytes']:,} "
+          f"bytes, gathered to rank 0's host in "
+          f"{save['gather_seconds']:.3f} s (moves {save['move_seconds']:.3f} "
+          f"s), written in {save['write_seconds']:.3f} s while step 2 ran; "
+          f"rank 0's host RSS at most {save['peak_rss_bytes'] / 2**30:.2f} "
+          f"GiB after the gather")
+    gc.collect()
+    kept: dict = {}
+
+    def keep(step, t):
+        if step == 1:  # after step 2: what --ckpt-every 2 saved
+            t0 = time.perf_counter()
+            kept.update(tree_digests(train._table_ckpt_tree(t)))
+            print(f"  the thread run's step-2 checkpoint tree: {len(kept)} "
+                  f"leaves built and hashed on the host in "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+    again, c2, m2 = table_run(arch, name + " again", argv, step_hook=keep)
+    keep_digests(again)
+    again.trainer = None
+    same_runs(f"{arch} {name}", thread, again)
+    same_procs_bits(f"{arch} {name}", saver, again)
+    t0 = time.perf_counter()
+    got = npz_digests(ckpt / "step_2" / "shard_0.npz")
+    differ = sorted(k for k in set(got) | set(kept)
+                    if got.get(k) != kept.get(k))
+    if differ:
+        raise AssertionError(f"{ckpt}/step_2: {len(differ)} leaves differ "
+                             f"from the thread run's, e.g. {differ[:3]}")
+    print(f"  {ckpt}/step_2/shard_0.npz: every one of its {len(got)} leaves "
+          f"the thread run's bits (sha256 of dtype, shape and bytes; read "
+          f"and hashed in {time.perf_counter() - t0:.1f} s)")
+    gc.collect()  # the thread run's ranks, before four processes start
+    resumed, c3, m3 = procs_run(arch, name + " resume", argv + [
+        "--ckpt-dir", str(ckpt), "--resume"])
+    (restore,) = [e for e in resumed.ckpt_log if e["op"] == "resume"]
+    for label, whole in (("thread", again), ("--procs", saver)):
+        if (resumed.losses, resumed.gnorms) != (whole.losses[2:],
+                                                whole.gnorms[2:]):
+            raise AssertionError(f"--procs --resume: {resumed.losses} "
+                                 f"{resumed.gnorms}, the {label} run's step "
+                                 f"2 {whole.losses[2:]} {whole.gnorms[2:]}")
+    print(f"  --procs --resume ({smi}): step 2 only, loss {resumed.losses} "
+          f"gnorm {resumed.gnorms}, bitwise the thread and --procs runs' "
+          f"step 2; rank 0 read step 2 in {restore['read_seconds']:.3f} s "
+          f"and restored every rank in {restore['seconds']:.3f} s")
+    return {(arch, name + " procs"): (saver, counts, mem),
+            (arch, name + " again"): (again, c2, m2),
+            (arch, name + " resume procs"): (resumed, c3, m3)}
+
+
+def with_flag(argv, flag, value) -> list:
+    """``argv`` with ``flag``'s value replaced."""
+    argv = list(argv)
+    argv[argv.index(flag) + 1] = value
+    return argv
+
+
+def leaf_digest(a) -> str:
+    """sha256 of an array's dtype, shape and bytes."""
+    import hashlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    h = hashlib.sha256(f"{a.dtype.str} {a.shape}".encode())
+    h.update(a.reshape(-1).view(np.uint8).data)
+    return h.hexdigest()
+
+
+def tree_digests(tree) -> dict[str, str]:
+    """Each leaf's digest of a checkpoint tree, as the store would write
+    it (``ckpt/store._flatten``: bf16 widened), hashed on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.ckpt.store import _flatten
+
+    arrays = _flatten(tree)
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(arrays, pool.map(leaf_digest, arrays.values())))
+
+
+def npz_digests(path) -> dict[str, str]:
+    """Each member's digest of an ``.npz`` (``ckpt/store.read_member``:
+    the zip's CRC-32 checked), one member in memory per thread (8
+    threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.ckpt.store import npz_members, read_member
+
+    infos = npz_members(str(path))
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip((i.filename.removesuffix(".npy") for i in infos),
+                        pool.map(lambda i: leaf_digest(
+                            read_member(str(path), i)), infos)))
+
+
+def host_rss() -> int:
+    """This process's resident host memory now (``VmRSS``), in bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/self/status has no VmRSS")
 
 
 def warm_launches(model, data: int) -> dict[str, int]:
@@ -1917,7 +2099,8 @@ def same_procs_bits(label, procs, thread) -> None:
 #: the enc-dec table path (phase_enc_dec_table_path):
 #: seamless-m4t-large-v2 at full width and depth (24 + 24 layers), 4
 #: stages on a 1 x 4 mesh, 8 microbatches of 1 x 2048 decoder tokens and
-#: 2048 encoder frames (16,384 decoder tokens a step), bf16, 1f1b, twice.
+#: 2048 encoder frames (16,384 decoder tokens a step), bf16, 1f1b, twice,
+#: 1 step each.
 #: Every rank holds its own io copy (2 x 262e6 parameters) with its whole
 #: ZeRO-1 state at dp 1, and the four ranks' AdamW update of those leaves
 #: sets the peak: it fits one 80 GB card with ``optim/adamw.py``'s
@@ -1926,7 +2109,7 @@ ENC_DEC_TABLE_ARGS = ["--runtime", "table", "--arch",
                       "seamless-m4t-large-v2", "--full-size", "--devices",
                       "4", "--stages", "4", "--microbatches", "8",
                       "--mb-rows", "1", "--seq", "2048", "--schedule",
-                      "1f1b", "--steps", "2", "--device", "cuda"]
+                      "1f1b", "--steps", "1", "--device", "cuda"]
 ENC_DEC_TABLE_RUNS = ("table 1f1b", "table 1f1b again")
 
 
@@ -1960,7 +2143,7 @@ def phase_enc_dec_table_path():
 CELL_ARCH = "paper-gpt3-large"
 CELL_SEQ = 4096
 CELL_ROWS = 8
-CELL_STEPS = 2
+CELL_STEPS = 1
 #: the op bodies timed against their roofline time: a mid stage's
 CELL_MID_STAGE = 1
 CELL_OP_REPS = 3
@@ -2233,34 +2416,42 @@ def cell_relayout_gpt3():
     return {(CELL_ARCH, "relayout forward"): (run, counts, 0)}
 
 
-#: the runs of phase_runtime_flags: paper-gpt3-large, full size, COMMON_ARGS
+#: the runs of phase_runtime_flags: paper-gpt3-large at full width,
+#: COMMON_ARGS, cut to RUNTIME_FLAGS_LAYERS layers (``registry.cut_depth``,
+#: 1 a stage): the flags' semantics do not depend on the depth, and the
+#: full depth's 10 GB checkpoint and its two restores took 89 s of the
+#: phase's 185 (PERF.md section 4)
 GPT3_ARGS = ["--arch", "paper-gpt3-large"] + COMMON_ARGS
+RUNTIME_FLAGS_LAYERS = 4
 FIXED_ORDER = ["--schedule", "1f1b"]
 #: --hb-deadline of the recovery runs.  Their faults are kills, which
 #: announce themselves: the deadline only arms the stall watchdog (no stage
 #: stalls here) and sets the recovery coordinator's poll, hb/4, which a
 #: step under --recover may wait out once at its end
 HB_DEADLINE = "2.0"
-#: free disk the checkpoint runs need: one step directory of 834,086,400
-#: parameters x 4 bytes x 3 trees (params as float32, m, v) = 10.0 GB
-CKPT_FREE_BYTES = 12e9
+#: free disk the checkpoint runs need: one step directory of 267,793,920
+#: parameters (113,258,496 in the 4 layers, 154,535,424 io) x 4 bytes x 3
+#: trees (params as float32, m, v) = 3.2 GB
+CKPT_FREE_BYTES = 4.5e9
 
 
 def phase_runtime_flags():
     """The runtime flags of ``repro_torch.launch.train`` on paper-gpt3-large
-    (full size, GPT3_ARGS), each held against its unfailed or uninterrupted
+    (full width, GPT3_ARGS, RUNTIME_FLAGS_LAYERS layers through
+    ``train_actor(args, cfg=...)``), each held against its unfailed or
+    uninterrupted
     run; K1 and K2 must launch in every run (counts zeroed just before and
     read just after each).
 
-    * obs: ``--steps 6 --metrics-report --explain --export-perfetto``; the
+    * obs: ``--steps 3 --metrics-report --explain --export-perfetto``; the
       export passes ``validate_chrome_trace`` and the recorded step-0 trace
       ``check_all``.
     * two identical unfailed ``1f1b`` runs (``--steps 2``) and, in turns
       with them, two with ``--metrics-report``: the step times with and
       without telemetry, and the identical-run spread that every equality
       below is held to (0: bitwise).
-    * checkpoint: ``--steps 3 --ckpt-every 2`` saves once, at step 2 (10 GB,
-      in a temporary directory removed at the end); ``--resume`` runs step 2
+    * checkpoint: ``--steps 3 --ckpt-every 2`` saves once, at step 2 (3.2
+      GB, in a temporary directory removed at the end); ``--resume`` runs step 2
       from it and must give the writer's step-2 loss.
     * recovery: a ``kill`` of stage 1 under ``--recover`` (respawned from
       the live step-start params) against the unfailed run, and a kill of
@@ -2268,7 +2459,7 @@ def phase_runtime_flags():
       ``restore_host`` of the checkpoint) against the writer's step 2; the
       recovery windows come from the recorded traces, which pass
       ``check_all``.
-    * adaptive: ``--steps 6 --adaptive --resynth-every 1`` (rrfp, hint bf)
+    * adaptive: ``--steps 3 --adaptive --resynth-every 1`` (rrfp, hint bf)
       within TOL["bfloat16"] of the obs run (the same flags without
       ``--adaptive``), ``check_all`` (table faithfulness included) on its
       step-0 trace; the scheduler's decisions and swaps are printed.
@@ -2278,6 +2469,7 @@ def phase_runtime_flags():
 
     import torch
 
+    from repro_torch.configs import registry
     from repro_torch.core.taskgraph import PipelineSpec
     from repro_torch.kernels import ops
     from repro_torch.launch import train
@@ -2288,18 +2480,24 @@ def phase_runtime_flags():
     runs = {}
     spec = PipelineSpec(4, 8)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    cfg = registry.cut_depth("paper-gpt3-large", RUNTIME_FLAGS_LAYERS)
 
     def launch(name, extra):
         argv = GPT3_ARGS + extra
         print(f"runtime flags ({name}): python -m repro_torch.launch.train "
-              + " ".join(argv))
+              + " ".join(argv) + f"  [cfg: registry.cut_depth, {cfg.pattern}]")
+        args = train.parser().parse_args(argv)
+        train._check_procs_flags(args)
+        train._check_flags(args)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        run = train.main(argv)
+        t0 = time.perf_counter()
+        run = train.train_actor(args, cfg=cfg)
         counts = ops.launch_counts()
         mem = torch.cuda.max_memory_allocated()
-        print(f"  losses {run.losses}  step seconds {run.step_seconds}  "
+        print(f"  {time.perf_counter() - t0:.1f} s wall  losses {run.losses}"
+              f"  step seconds {run.step_seconds}  "
               f"launches {counts}  peak memory {mem / 2**30:.2f} GiB")
         if not run.losses or not all(math.isfinite(x) for x in run.losses):
             raise AssertionError(f"the {name} run gave losses {run.losses}")
@@ -2327,7 +2525,7 @@ def phase_runtime_flags():
     try:
         # -- observability ------------------------------------------------
         perfetto = tmp / "step0.perfetto.json"
-        obs = launch("obs", ["--steps", "6", "--metrics-report", "--explain",
+        obs = launch("obs", ["--steps", "3", "--metrics-report", "--explain",
                              "--export-perfetto", str(perfetto)])
         doc = json.loads(perfetto.read_text())
         validate_chrome_trace(doc)
@@ -2405,8 +2603,8 @@ def phase_runtime_flags():
         gate("kill + --recover against the unfailed run", killed.losses,
              plain[0].losses)
         outage(killed, "kill")
-        # --ckpt-every 2: no second 10 GB save at step 3 (--recover's
-        # default cadence is 1)
+        # --ckpt-every 2: no second save at step 3 (--recover's default
+        # cadence is 1)
         rr = launch("resume + recover",
                     ["--steps", "3", "--resume", "--recover", "--chaos",
                      "fail_stage=2,fail_after=3", "--ckpt-dir", ckpt,
@@ -2425,7 +2623,7 @@ def phase_runtime_flags():
         shutil.rmtree(ckpt)
 
         # -- adaptive hint loop --------------------------------------------
-        ad = launch("adaptive", ["--steps", "6", "--adaptive",
+        ad = launch("adaptive", ["--steps", "3", "--adaptive",
                                  "--resynth-every", "1", "--hint", "bf",
                                  "--record-trace",
                                  str(tmp / "adaptive.trace.jsonl")])
@@ -2489,12 +2687,14 @@ def phase_multimodal_path():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
+        t0 = time.perf_counter()
         run = train.train_multimodal(args, model=model)
         counts = ops.launch_counts()
         mem = torch.cuda.max_memory_allocated()
         steps = len(run.losses)
         tokens = args.microbatches * args.mb_rows * args.seq
-        print(f"  losses {run.losses}  step seconds {run.step_seconds}  "
+        print(f"  {time.perf_counter() - t0:.1f} s wall  losses {run.losses}"
+              f"  step seconds {run.step_seconds}  "
               f"launches {counts} "
               f"({ {k: v / steps for k, v in counts.items()} } per step)"
               f"  peak memory {mem / 2**30:.2f} GiB")
@@ -2550,6 +2750,7 @@ def phase_serve_path():
               + ("" if cfg is None else
                  f"  [cfg: registry.cut_depth({arch!r}, {layers})]"))
         args = serve.parser().parse_args(argv)
+        t0 = time.perf_counter()
         server = serve.build_server(arch, stages=args.stages, layers=None,
                                     batch=args.batch,
                                     cache_len=args.cache_len, reduced=False,
@@ -2564,7 +2765,8 @@ def phase_serve_path():
         want = {k: v * tokens for k, v in
                 serve_launches(model, args.batch).items()}
         steady = run.step_seconds[1:]
-        print(f"  step seconds {run.step_seconds}  launches {counts} "
+        print(f"  {time.perf_counter() - t0:.1f} s wall with the build  "
+              f"step seconds {run.step_seconds}  launches {counts} "
               f"({ {k: v / tokens for k, v in counts.items()} } per step; "
               f"from the layers {want})  peak memory {mem / 2**30:.2f} GiB")
         print(f"  first step {run.step_seconds[0]:.3f} s, then "
@@ -3274,29 +3476,34 @@ def main(argv=None) -> int:
                             "flash_fwd_kernelILi256E")
         print(f"K1 head_dim 256: {n} instantiations, no ptxas spills")
 
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(fn, *args):
+        """Run phase ``fn(*args)``; print its wall time as it ends."""
+        t1 = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__] = time.perf_counter() - t1
+        print(f"phase {fn.__name__}: {seconds[fn.__name__]:.1f} s",
+              flush=True)
+        return out
+
     record: dict = {}
-    phase_attention(record)
-    phase_rmsnorm(record)
-    phase_ssd(record)
-    phase_decode(record)
+    for fn in (phase_attention, phase_rmsnorm, phase_ssd, phase_decode):
+        timed(fn, record)
     if "--kernels-only" in argv:
         return 0
-    phase_small_model()
-    phase_small_multimodal()
-    phase_small_serve()
-    phase_small_table()
-    phase_small_serve_mesh()
-    runs = phase_main_path()
+    for fn in (phase_small_model, phase_small_multimodal, phase_small_serve,
+               phase_small_table, phase_small_serve_mesh):
+        timed(fn)
+    runs = timed(phase_main_path)
     torch.cuda.empty_cache()
-    runs.update(phase_table_path(runs))
-    runs.update(phase_moe_table_path())
-    runs.update(phase_procs_path(runs))
-    runs.update(phase_enc_dec_table_path())
-    runs.update(phase_cells_path())
-    runs.update(phase_runtime_flags())
-    runs.update(phase_multimodal_path())
-    runs.update(phase_serve_path())
-    runs.update(phase_serve_mesh_path(runs))
+    runs.update(timed(phase_table_path, runs))
+    runs.update(timed(phase_moe_table_path))
+    runs.update(timed(phase_procs_path, runs))
+    for fn in (phase_enc_dec_table_path, phase_cells_path,
+               phase_runtime_flags, phase_multimodal_path, phase_serve_path):
+        runs.update(timed(fn))
+    runs.update(timed(phase_serve_mesh_path, runs))
     kernels = []
     for name, rec in record.items():
         by_path = {f"{arch} {run}": c[name] for (arch, run), (_, c, _)
@@ -3314,6 +3521,9 @@ def main(argv=None) -> int:
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(
         json.dumps(summary, indent=1))
+    print("phases by wall time (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(seconds.items(),
+                                           key=lambda kv: -kv[1])))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(f"card: {smi}")

@@ -24,10 +24,15 @@ tree.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
+import struct
 import threading
 import time
+import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -93,6 +98,46 @@ def _unflatten_into(tree, arrays: dict):
     return _map_with_path(fill, tree)
 
 
+def npz_members(path: str) -> list[zipfile.ZipInfo]:
+    """The members of an ``.npz`` file (one ``<leaf>.npy`` a leaf)."""
+    with zipfile.ZipFile(path) as z:
+        return z.infolist()
+
+
+def read_member(path: str, info: zipfile.ZipInfo) -> np.ndarray:
+    """One member of an ``.npz`` as its array.  ``np.savez`` (both
+    packages' writer) stores members uncompressed: one is read by one
+    ``np.fromfile`` into its array and checked against the zip's CRC-32
+    (``np.load`` copies a member through the zip reader 256 KB at a time
+    in Python, which holds the interpreter lock)."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        raise ValueError(f"{path}: member {info.filename} is compressed; "
+                         f"checkpoints are written with np.savez")
+    fmt = np.lib.format
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        local = f.read(30)  # the member's local header
+        if local[:4] != b"PK\x03\x04":
+            raise ValueError(f"{path}: no local header for {info.filename}")
+        name_len, extra_len = struct.unpack("<HH", local[26:30])
+        start = info.header_offset + 30 + name_len + extra_len
+        f.seek(start)
+        major, _ = fmt.read_magic(f)
+        read_header = (fmt.read_array_header_1_0 if major == 1
+                       else fmt.read_array_header_2_0)
+        shape, fortran, dtype = read_header(f)
+        n_head = f.tell() - start
+        f.seek(start)
+        head = f.read(n_head)
+        a = np.fromfile(f, dtype=dtype, count=math.prod(shape))
+    if n_head + a.nbytes != info.file_size or zlib.crc32(
+            a.reshape(-1).view(np.uint8), zlib.crc32(head)) != info.CRC:
+        raise ValueError(f"{path}: member {info.filename} is truncated or "
+                         f"fails its CRC-32")
+    return (a.reshape(shape[::-1]).transpose() if fortran
+            else a.reshape(shape))
+
+
 class CheckpointStore:
     def __init__(self, directory: str, keep: int = 3, process: int = 0):
         self.dir = directory
@@ -100,6 +145,9 @@ class CheckpointStore:
         self.process = process
         os.makedirs(directory, exist_ok=True)
         self._pending: threading.Thread | None = None
+        self._error: Exception | None = None
+        #: the last write that landed: ``{"step", "seconds"}``
+        self.last_write: dict | None = None
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree, meta: dict | None = None,
@@ -108,18 +156,30 @@ class CheckpointStore:
         if asynchronous:
             self.wait()
             self._pending = threading.Thread(
-                target=self._write, args=(step, arrays, meta or {}),
-                daemon=True)
+                target=self._write_noting_error,
+                args=(step, arrays, meta or {}), daemon=True)
             self._pending.start()
         else:
             self._write(step, arrays, meta or {})
 
     def wait(self):
+        """Wait for the pending asynchronous write; its error raises here
+        (and LATEST still names the last step that landed)."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _write_noting_error(self, step: int, arrays: dict, meta: dict):
+        try:
+            self._write(step, arrays, meta)
+        except Exception as e:  # raised again by wait()
+            self._error = e
 
     def _write(self, step: int, arrays: dict, meta: dict):
+        t0 = time.perf_counter()
         tmp = os.path.join(self.dir, f".tmp_step_{step}_{time.time_ns()}")
         final = os.path.join(self.dir, f"step_{step}")
         os.makedirs(tmp, exist_ok=True)
@@ -140,6 +200,7 @@ class CheckpointStore:
             f.write(str(step))
         os.rename(latest_tmp, os.path.join(self.dir, "LATEST"))
         self._gc()
+        self.last_write = {"step": step, "seconds": time.perf_counter() - t0}
 
     def _gc(self):
         steps = self.list_steps()
@@ -185,6 +246,10 @@ class CheckpointStore:
             manifest = json.load(f)
         arrays: dict = {}
         for p in range(manifest["shards"]):
-            with np.load(os.path.join(d, f"shard_{p}.npz")) as z:
-                arrays.update({k: z[k] for k in z.files})
+            path = os.path.join(d, f"shard_{p}.npz")
+            infos = npz_members(path)
+            with ThreadPoolExecutor(8) as pool:  # reads and CRCs in parallel
+                got = pool.map(lambda i: read_member(path, i), infos)
+                arrays.update({i.filename.removesuffix(".npy"): a
+                               for i, a in zip(infos, got)})
         return arrays, manifest

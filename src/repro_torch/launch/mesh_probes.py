@@ -148,6 +148,38 @@ def faults(mesh, case: str, wait: float = 0.0) -> dict:
     return {r: _host(got[r]) for r in mesh.local_ranks}
 
 
+def host_moves(mesh, case: str) -> dict:
+    """``ProcessMesh.move`` and ``share`` (a mesh of processes only):
+    ``ok``: every rank moves a float32 tensor of its own length to rank 0,
+    rank 0 moves each rank a bf16 tensor of the shape it expects, and every
+    rank takes rank 0's integer and its None; ``shape`` (rank 1 expects
+    another shape) and ``other`` (rank 1 calls ``share`` where the others
+    call ``move``) return each rank's ``CollectiveError`` message."""
+    from repro_torch.launch.mesh import CollectiveError
+
+    me, n = mesh.rank, mesh.size
+    mine = torch.arange(me + 1, dtype=torch.float32)
+    like = torch.empty(2, 3, dtype=torch.bfloat16)
+    try:
+        if case == "other" and me == 1:
+            mesh.share(None)
+        if case in ("shape", "other"):
+            mesh.move(like if me == 0 else None, src=0, dst=1,
+                      like=torch.empty(3, 2, dtype=torch.bfloat16)
+                      if case == "shape" else like)
+            return {me: "no error"}
+    except CollectiveError as e:
+        return {me: str(e)}
+    got = [mesh.move(mine if me == r else None, src=r, dst=0)
+           for r in range(n)]
+    sent = [mesh.move(torch.full((2, 3), r, dtype=torch.bfloat16)
+                      if me == 0 else None, src=0, dst=r, like=like)
+            for r in range(n)]
+    return {me: {"gathered": got, "received": sent[me],
+                 "shared": [mesh.share(7 if me == 0 else None),
+                            mesh.share(None)]}}
+
+
 def trainer(mesh, kw: dict, steps: int) -> dict:
     """``launch.train.build_trainer(mesh=mesh, **kw)`` for ``steps`` steps
     on the seeded batches: each local rank's losses, gnorms, parameters

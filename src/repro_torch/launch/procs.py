@@ -40,6 +40,16 @@ thread mesh does, where the two calls would otherwise pair silently (a
 ``psum_scatter`` and an ``all_to_all`` are both ``all_to_all_single``).
 The header's host time counts into :attr:`seconds`.
 
+Host transfers.  A table checkpoint moves every rank's state through rank
+0's host: :meth:`ProcessMesh.move` carries one host tensor from one rank
+to another, and :meth:`ProcessMesh.share` gives every rank one rank's host
+integer.  Every rank of the world calls each, in the same order, and
+exchanges the header first, so a rank that called something else, or
+expects another dtype or shape, raises ``CollectiveError`` on every rank;
+the payload travels over the headers' gloo group, under ``nccl`` too.
+Neither is a collective of the rank programs: they count into no
+:attr:`counts`.
+
 Backends.  ``gloo`` on CUDA tensors stages every payload through host
 memory (a copy to the host, the gloo op, a copy back to the rank's
 device); the run's header says so.  ``nccl`` passes device tensors
@@ -98,7 +108,9 @@ INIT_METHOD_ENV = "REPRO_TORCH_INIT_METHOD"
 BACKENDS = ("gloo", "nccl")
 
 _NAMES = ("ppermute", "psum", "pmax", "psum_scatter", "all_gather",
-          "all_to_all")
+          "all_to_all", "move", "share")
+#: the calls whose ranks give different payloads by design
+_UNEQUAL = ("ppermute", "move", "share")
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
            torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8,
            torch.bool)
@@ -219,6 +231,9 @@ class ProcessMesh(MeshBase):
         self._host = (None if backend == "gloo" else
                       dist.new_group(list(range(self.size)), timeout=td,
                                      backend="gloo"))
+        #: the whole world's group (its headers' gloo group carries the
+        #: host transfers)
+        self._world = self._groups[frozenset(self.axis_names)]
 
     def _new_groups(self, members: tuple, td) -> tuple:
         if len(members) == 1:
@@ -274,6 +289,77 @@ class ProcessMesh(MeshBase):
                 out[k] = (c + n, s + seconds[k])
         return dict(sorted(out.items()))
 
+    # ---- host transfers (checkpoints) -----------------------------------
+    def move(self, x: torch.Tensor | None, src: int, dst: int,
+             like: torch.Tensor | None = None) -> torch.Tensor | None:
+        """Rank ``src``'s host tensor ``x`` on rank ``dst`` (a new tensor
+        there, ``x`` itself when ``src == dst``; None on every other
+        rank).  Every rank of the world calls it with the same ``src`` and
+        ``dst``; ``x`` is read on ``src`` only.  ``like`` on ``dst`` is the
+        tensor it expects (dtype and shape): another one on ``src`` raises
+        ``CollectiveError`` on every rank."""
+        me, where = self._rank, self._where("move", self.axis_names)
+        if me == src and not isinstance(x, torch.Tensor):
+            raise TypeError(f"{where}: rank {src} sends no tensor")
+        item = x if me == src else like if me == dst else None
+        heads = self._host_heads("move", (src, dst) + (
+            () if item is None else (item,)))
+        if heads is not None:
+            pairs = {h[:2] for h in heads}
+            if len(pairs) > 1:
+                raise CollectiveError(f"{where}: the ranks move between "
+                                      f"{sorted(pairs)}")
+            sent, want = heads[src][2:], heads[dst][2:]
+            if want and want != sent:
+                raise CollectiveError(f"{where}: rank {src} sends {sent}, "
+                                      f"rank {dst} expects {want}")
+        if src == dst or me not in (src, dst):
+            return x if me == src else None
+        pg = self._world.header_pg
+        if me == src:
+            with self._talking("move", self.axis_names):
+                dist.send(x.detach().cpu().contiguous(), dst, group=pg)
+            return None
+        dtype, shape = heads[src][2]
+        buf = torch.empty(shape, dtype=dtype)
+        with self._talking("move", self.axis_names):
+            dist.recv(buf, src, group=pg)
+        return buf
+
+    def share(self, value: int | None, root: int = 0) -> int | None:
+        """Rank ``root``'s host integer (or None) on every rank: it travels
+        in the header.  Every rank calls it; ``value`` is read on ``root``
+        only."""
+        if value is not None and value < 0:
+            raise ValueError(f"share: {value} (a count or None)")
+        heads = self._host_heads("share", (
+            root, -1 if value is None else int(value)))
+        if heads is None:
+            return value
+        if len({h[0] for h in heads}) > 1:
+            raise CollectiveError(f"{self._where('share', self.axis_names)}"
+                                  f": the ranks name other roots")
+        got = heads[root][1]
+        return None if got == -1 else got
+
+    def _host_heads(self, name: str, payload: tuple) -> list | None:
+        """Every rank's decoded header items of a host transfer, by rank
+        (None in a world of one)."""
+        self._guard(name, self.axis_names)
+        if self._world.header_pg is None:
+            return None
+        mine = _encode(name, payload)
+        got = [torch.empty_like(mine) for _ in self._world.members]
+        with self._talking(name, self.axis_names):
+            dist.all_gather(got, mine, group=self._world.header_pg)
+        heads = [_decode(h) for h in got]
+        names = sorted({n for n, _ in heads})
+        if names != [name]:
+            raise CollectiveError(f"{self._where(name, self.axis_names)}: "
+                                  f"the ranks called different collectives "
+                                  f"{names}")
+        return [items for _, items in heads]
+
     # ---- the exchange ----------------------------------------------------
     def _where(self, name: str, axes: tuple[str, ...]) -> str:
         return (f"rank {self._rank} {self.coords(self._rank)}: {name} over "
@@ -315,7 +401,7 @@ class ProcessMesh(MeshBase):
             raise CollectiveError(f"{self._where(name, axes)}: the group's "
                                   f"ranks called different collectives "
                                   f"{sorted(names)}")
-        if name != "ppermute" and len({items for _, items in heads}) > 1:
+        if name not in _UNEQUAL and len({items for _, items in heads}) > 1:
             raise CollectiveError(
                 f"{self._where(name, axes)}: the group's ranks gave "
                 f"different payloads "

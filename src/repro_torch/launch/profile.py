@@ -187,7 +187,7 @@ def main(argv=None) -> dict:
             schedule=torch.profiler.schedule(skip_first=1, wait=0, warmup=1,
                                              active=1, repeat=1),
             on_trace_ready=ready) as prof:
-        run = run_fn(args, step_hook=lambda step: prof.step(), **kw)
+        run = run_fn(args, step_hook=lambda *_: prof.step(), **kw)
     out = breakdown(captured["events"], run.step_seconds[2])
     if not out["kernels"]:
         raise RuntimeError("no device kernel was traced: the breakdown is "

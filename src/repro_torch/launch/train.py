@@ -48,7 +48,10 @@ with ``--procs``, one process each (``launch/procs.py``: spawned here, or
 the world that ``torchrun`` set; ``--dist-backend gloo`` stages CUDA
 payloads through host memory, ``nccl`` needs a card per rank), with the
 same bits: each holds its stage's parameters, its own io parameters and
-its ZeRO-1 state, so memory grows with every data replica.  The port's
+its ZeRO-1 state, so memory grows with every data replica.  Its
+checkpoints are the reference's table checkpoint, one ``shard_0.npz`` on
+either mesh: with ``--procs`` every rank moves its state to rank 0's host,
+and rank 0 alone writes and reads the directory.  The port's
 ``--runtime`` default stays ``actor``; the reference's is ``table``.  The telemetry
 flags instrument the actor runtime and stop under ``table``, as the
 reference's do; the other actor-only flags stop too.  The enc-dec config
@@ -64,6 +67,7 @@ import argparse
 import copy
 import dataclasses
 import os
+import threading
 import time
 from typing import Any
 
@@ -142,7 +146,13 @@ class TrainRun:
     #: ``--adaptive``: the run's ``AdaptiveScheduler``
     scheduler: Any = None
     #: checkpoint I/O: one dict per save, resume or respawn restore
-    #: (``op``, ``step``, ``seconds``, and ``bytes`` for a save)
+    #: (``op``, ``step``, ``seconds``, and ``bytes`` for a save; a table
+    #: save also ``gather_seconds``, the global tree on the host (of which
+    #: ``move_seconds`` moved every rank's state to rank 0's host under
+    #: ``--procs``), and ``write_seconds``, its asynchronous write; a table
+    #: resume
+    #: ``read_seconds``, the file's read where it was read; a table save
+    #: and resume ``peak_rss_bytes``, the process's host memory peak so far)
     ckpt_log: list[dict] = dataclasses.field(default_factory=list)
     #: each step's global grad norm (the table runtime's before clipping;
     #: the actor path does not clip)
@@ -154,8 +164,12 @@ class TrainRun:
     #: host seconds inside them), summed over the ranks
     #: (``MeshBase.counts_over_ranks``)
     collectives: list[dict] = dataclasses.field(default_factory=list)
+    #: ``--runtime table``: this process's peak resident host memory over
+    #: the loop (bytes; sampled, ``_RssPeak``)
+    peak_rss_bytes: int = 0
     #: ``--procs``: each process's ``rank``, ``coords``, K1/K2
-    #: ``launches``, ``peak_bytes`` of device memory and ``digests`` of its
+    #: ``launches``, ``peak_bytes`` of device memory, ``peak_rss_bytes`` of
+    #: host memory and ``digests`` of its
     #: replicated stage leaves (``procs.leaf_digests``)
     ranks: list[dict] = dataclasses.field(default_factory=list)
 
@@ -645,25 +659,112 @@ def build_trainer(arch: str, *, data: int, stages: int, layers: int | None,
     )
 
 
-def _table_ckpt_tree(t: dict) -> dict:
+def _state_leaves(sp, io, opt: dict) -> list[torch.Tensor]:
+    """A rank's stage parameters, io parameters (``io`` None: left out) and
+    ZeRO-1 state, in one order on every rank: what a table checkpoint moves
+    between processes."""
+    out = list(sp.parameters()) + ([] if io is None else list(io.parameters()))
+    return out + [opt[kind][k][n] for kind in ("shards", "experts")
+                  for k in sorted(opt[kind]) for n in sorted(opt[kind][k])]
+
+
+class _HostModule:
+    """Another rank's parameters on this host, by name, for the conversions
+    to the global layout (which read ``named_parameters``)."""
+
+    def __init__(self, names, values):
+        self._items = list(zip(names, values, strict=True))
+
+    def named_parameters(self):
+        return iter(self._items)
+
+    def parameters(self):
+        return (v for _, v in self._items)
+
+
+def _gather_ranks(t: dict):
+    """Every rank's stage parameters and ZeRO-1 state on rank 0's host,
+    and rank 0's io parameters (the checkpoint reads no other rank's):
+    ``(stage_params, io_params, opt_state)`` lists by rank on rank 0, None
+    on the others.  Every leaf travels as a host tensor of its dtype (bf16
+    as bf16; the conversion widens it) through ``ProcessMesh.move``, rank
+    by rank: no device holds another rank's state."""
+    mesh = t["mesh"]
+    (me,) = mesh.local_ranks
+    sp, opt = t["stage_params"][me], t["opt_state"][me]
+    mine = _state_leaves(sp, None, opt)
+    n_sp = len(list(sp.parameters()))
+    got = [[mesh.move(x.detach().to("cpu", copy=True) if r == me else None,
+                      src=r, dst=0) for x in mine] for r in range(mesh.size)]
+    if me != 0:
+        return None
+    names = [n for n, _ in sp.named_parameters()]
+    stage_params, opt_state = [], []
+    for leaves in got:
+        stage_params.append(_HostModule(names, leaves[:n_sp]))
+        it = iter(leaves[n_sp:])
+        opt_state.append({kind: {k: {n: next(it) for n in sorted(opt[kind][k])}
+                                 for k in sorted(opt[kind])}
+                          for kind in ("shards", "experts")})
+    io = _HostModule([n for n, _ in t["io_params"][0].named_parameters()],
+                     [p.detach().to("cpu", copy=True)
+                      for p in t["io_params"][0].parameters()])
+    return stage_params, [io] + [None] * (mesh.size - 1), opt_state
+
+
+def _table_ckpt_tree(t: dict, ranks: tuple | None = None) -> dict:
     """The reference's table checkpoint: stacked stage params, io params
-    and the global ZeRO-1 state (numpy)."""
-    sp, io = rank_params_to_reference(t["model"], t["mesh"],
-                                      t["stage_params"], t["io_params"])
-    return {"stage_params": sp, "io_params": io,
+    and the global ZeRO-1 state (numpy), of ``ranks`` (``(stage_params,
+    io_params, opt_state)`` lists by rank: on a mesh of processes what
+    :func:`_gather_ranks` brings rank 0) or the trainer's own."""
+    sp, io, opt = ranks or (t["stage_params"], t["io_params"],
+                            t["opt_state"])
+    sp_tree, io_tree = rank_params_to_reference(t["model"], t["mesh"], sp,
+                                                io)
+    return {"stage_params": sp_tree, "io_params": io_tree,
             "opt_state": zero1_state_to_reference(
-                t["model"], t["mesh"], t["partition"], t["opt_state"])}
+                t["model"], t["mesh"], t["partition"], opt)}
 
 
-def _table_restore(t: dict, store: CheckpointStore, step: int) -> None:
-    """Load checkpoint ``step`` into the trainer's per-rank state."""
+def _table_layout(t: dict) -> dict:
+    """The restore target of a table checkpoint: the global tree's
+    ``meta`` tensors, from what every process knows: each stage's module
+    allocated on the ``meta`` device and this process's ZeRO-1 state.
+    Every stage must have this rank's parameter shapes, so that ZeRO-1's
+    ``[S, dp * n]`` leaves have one ``n``."""
+    model, mesh = t["model"], t["mesh"]
+    me = mesh.local_ranks[0]
+    stages = [model.init_stage_params(s, seed=None, device="meta",
+                                      data_size=mesh.shape["data"])
+              for s in range(model.num_stages)]
+    mine = [p.shape for p in t["stage_params"][me].parameters()]
+    for s, m in enumerate(stages):
+        if [p.shape for p in m.parameters()] != mine:
+            raise ValueError(f"stage {s}'s parameters have other shapes "
+                             f"than rank {me}'s: no one ZeRO-1 layout")
+    sp_meta, io_meta = rank_reference_layout(
+        model, mesh, [stages[mesh.coords(r)["model"]]
+                      for r in range(mesh.size)],
+        [model.init_io_params(seed=None, device="meta")] * mesh.size)
+    return {"stage_params": sp_meta, "io_params": io_meta,
+            "opt_state": zero1_state_layout(model, mesh, t["partition"],
+                                            t["opt_state"][me])}
+
+
+def _table_restore(t: dict, store: CheckpointStore | None, step: int
+                   ) -> float:
+    """Load checkpoint ``step`` into the trainer's per-rank state; returns
+    the seconds its read took (~0 where it read nothing).  On a mesh of
+    processes only rank 0 holds ``store`` and reads it; every rank takes
+    part (:func:`_move_restored`)."""
     model, mesh, device = t["model"], t["mesh"], t["mesh"].device
-    sp_meta, io_meta = rank_reference_layout(model, mesh, t["stage_params"],
-                                             t["io_params"])
-    target = {"stage_params": sp_meta, "io_params": io_meta,
-              "opt_state": zero1_state_layout(model, mesh, t["partition"],
-                                              t["opt_state"][0])}
-    state, _ = store.restore(step, target)
+    target = None if store is None else _table_layout(t)
+    t0 = time.perf_counter()
+    state = None if store is None else store.restore(step, target)[0]
+    read = time.perf_counter() - t0
+    if len(mesh.local_ranks) != mesh.size:
+        _move_restored(t, state)
+        return read
     sp, io = rank_params_from_reference(model, mesh, state["stage_params"],
                                         state["io_params"], device)
     opt = zero1_state_from_reference(
@@ -677,14 +778,53 @@ def _table_restore(t: dict, store: CheckpointStore, step: int) -> None:
     for r, st in enumerate(opt):
         t["opt_state"][r].clear()
         t["opt_state"][r].update(st)
+    return read
+
+
+@torch.no_grad()
+def _move_restored(t: dict, state: dict | None) -> None:
+    """A mesh of processes: rank 0 (``state``: the restored global tree on
+    its host) builds each rank's own parameters and ZeRO-1 state on its
+    host, one rank at a time, and moves them to that rank
+    (``ProcessMesh.move``), which copies them into its own; the other
+    ranks pass None."""
+    model, mesh = t["model"], t["mesh"]
+    (me,) = mesh.local_ranks
+    mine = _state_leaves(t["stage_params"][me], t["io_params"][me],
+                         t["opt_state"][me])
+    for r in range(mesh.size):
+        theirs = None
+        if state is not None:
+            sp, io = rank_params_from_reference(
+                model, mesh, state["stage_params"], state["io_params"],
+                "cpu", ranks=(r,))
+            opt = zero1_state_from_reference(
+                model, mesh, t["partition"], state["opt_state"], "cpu",
+                expert_dtype=t["opt_cfg"].expert_state_dtype, ranks=(r,))
+            theirs = _state_leaves(sp[r], io[r], opt[r])
+            if len(theirs) != len(mine):
+                raise ValueError(f"rank {r}: {len(theirs)} leaves restored "
+                                 f"for {len(mine)}")
+        for j, x in enumerate(mine):
+            got = mesh.move(None if theirs is None else theirs[j], src=0,
+                            dst=r, like=x)
+            if got is None:
+                continue
+            if got.shape != x.shape or got.dtype != x.dtype:
+                raise ValueError(f"rank {r}: a restored leaf {got.dtype} "
+                                 f"{tuple(got.shape)} for {x.dtype} "
+                                 f"{tuple(x.shape)}")
+            x.copy_(got)
 
 
 def train_table(args, *, cfg=None, step_hook=None) -> TrainRun:
     """Train with the schedule-table executor and ZeRO-1 AdamW on a
     ``(devices // stages) × stages`` mesh of ranks (port of the
     reference's ``--runtime table`` loop).  ``cfg`` as
-    :func:`build_trainer`'s; ``step_hook(step)`` runs after each step.
-    With ``--procs`` the ranks are processes (:func:`train_procs`)."""
+    :func:`build_trainer`'s; ``step_hook(step, trainer)`` runs after each
+    step and its checkpoint's gather (``trainer``: the
+    :func:`build_trainer` dict, its per-rank state after the step).  With
+    ``--procs`` the ranks are processes (:func:`train_procs`)."""
     if args.arch is None:
         args.arch = "deepseek-7b"
     data = args.devices // args.stages
@@ -712,16 +852,41 @@ def _table_loop(args, mesh, cfg, step_hook) -> TrainRun:
         f"bubble={t['table'].bubble_fraction():.2f}  device={mesh.device}"
         + (f"  {mesh!r}" if args.procs else ""))
     run = TrainRun(losses=[], step_seconds=[], trainer=t)
-    store = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
+    rss = _RssPeak()
+    try:
+        _table_steps(args, t, run, rss, step_hook, say)
+    finally:
+        rss.close()
+        run.peak_rss_bytes = rss.peak
+    return run
+
+
+def _table_steps(args, t: dict, run: TrainRun, rss, step_hook, say) -> None:
+    """The table loop's checkpoint resume, steps and saves, into ``run``."""
+    mesh = t["mesh"]
+    # on a mesh of processes rank 0 alone reads and writes the directory
+    # (under torchrun the others may not see it); every rank takes part
+    procs = len(mesh.local_ranks) != mesh.size
+    store = (CheckpointStore(args.ckpt_dir)
+             if args.ckpt_dir and mesh.local_ranks[0] == 0 else None)
     ckpt_every = _or(args.ckpt_every, 10)
     start_step = 0
-    if store and args.resume and store.latest_step() is not None:
-        start_step = store.latest_step()
-        t0 = time.perf_counter()
-        _table_restore(t, store, start_step)
-        run.ckpt_log.append({"op": "resume", "step": start_step,
-                             "seconds": time.perf_counter() - t0})
-        print(f"resumed from step {start_step}")
+    if args.ckpt_dir and args.resume:
+        latest = store.latest_step() if store else None
+        latest = mesh.share(latest) if procs else latest
+        if latest is not None:
+            start_step = latest
+            t0 = time.perf_counter()
+            read = _table_restore(t, store, start_step)
+            run.ckpt_log.append({"op": "resume", "step": start_step,
+                                 "seconds": time.perf_counter() - t0,
+                                 "read_seconds": read,
+                                 "peak_rss_bytes": rss.peak})
+            print(f"{f'rank {mesh.local_ranks[0]}: ' if procs else ''}"
+                  f"resumed from step {start_step} in "
+                  f"{run.ckpt_log[-1]['seconds']:.2f} s ("
+                  + (f"read in {read:.2f} s, " if store else "")
+                  + f"peak host RSS {rss.peak / 2**30:.2f} GiB)")
 
     def make(step):
         return synth_batch(t["cfg"], t["batch_size"], t["seq"],
@@ -746,20 +911,81 @@ def _table_loop(args, mesh, cfg, step_hook) -> TrainRun:
             run.gnorms.append(float(m["gnorm"]))
             say(f"step {step:4d}  loss {loss:8.4f}  gnorm "
                 f"{run.gnorms[-1]:7.3f}  lr {m['lr']:.2e}  {dt*1e3:7.1f} ms")
-            if store and (step + 1) % ckpt_every == 0:
+            if args.ckpt_dir and (step + 1) % ckpt_every == 0:
                 t1 = time.perf_counter()
-                store.save(step + 1, _table_ckpt_tree(t),
-                           meta={"arch": args.arch, "step": step + 1},
-                           asynchronous=True)
-                run.ckpt_log.append({"op": "save", "step": step + 1,
-                                     "seconds": time.perf_counter() - t1})
+                ranks = _gather_ranks(t) if procs else None  # every rank
+                moved = time.perf_counter() - t1
+                tree = (None if procs and ranks is None
+                        else _table_ckpt_tree(t, ranks))
+                del ranks
+                entry = {"op": "save", "step": step + 1,
+                         "move_seconds": moved,
+                         "gather_seconds": time.perf_counter() - t1,
+                         "peak_rss_bytes": rss.peak}
+                run.ckpt_log.append(entry)
+                if store:
+                    _landed(store, run, say)  # the previous save's write
+                    store.save(step + 1, tree,
+                               meta={"arch": args.arch, "step": step + 1},
+                               asynchronous=True)
+                del tree
+                entry["seconds"] = time.perf_counter() - t1
             if step_hook is not None:
-                step_hook(step)
+                step_hook(step, t)
         if store:
-            store.wait()
+            _landed(store, run, say)
     finally:
         it.close()
-    return run
+
+
+def _landed(store: CheckpointStore, run: TrainRun, say) -> None:
+    """Wait for the store's pending write (its error raises here) and note
+    its seconds and bytes in the save's ``ckpt_log`` entry."""
+    store.wait()
+    done = store.last_write
+    if done is None:
+        return
+    store.last_write = None
+    (entry,) = [e for e in run.ckpt_log
+                if e["op"] == "save" and e["step"] == done["step"]]
+    entry["write_seconds"] = done["seconds"]
+    entry["bytes"] = _step_bytes(store, done["step"])
+    say(f"checkpoint step {done['step']}: {entry['bytes']:,} bytes, "
+        f"gathered in {entry['gather_seconds']:.2f} s (moves "
+        f"{entry['move_seconds']:.2f} s), written in {done['seconds']:.2f} "
+        f"s -> {store.dir}")
+
+
+def _rss() -> int:
+    """This process's resident host memory now (``VmRSS``), in bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+class _RssPeak:
+    """This process's peak resident host memory since it was made: ``VmRSS``
+    sampled every ``every`` s on a thread (some kernels have no
+    ``VmHWM``, and ``getrusage``'s ``ru_maxrss`` of a spawned process
+    starts at its parent's peak)."""
+
+    def __init__(self, every: float = 0.05):
+        self.peak = _rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, args=(every,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _sample(self, every: float) -> None:
+        while not self._stop.wait(every):
+            self.peak = max(self.peak, _rss())
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss())
 
 
 def _warm_up(t: dict, arrays: dict) -> None:
@@ -804,7 +1030,7 @@ def _rank_report(run: TrainRun) -> TrainRun:
     run.ranks = [{
         "rank": r, "coords": mesh.coords(r), "launches": ops.launch_counts(),
         "peak_bytes": torch.cuda.max_memory_allocated(mesh.device)
-        if cuda else 0,
+        if cuda else 0, "peak_rss_bytes": run.peak_rss_bytes,
         "digests": leaf_digests(t["partition"], t["stage_params"][r])}]
     return run
 
@@ -1167,8 +1393,8 @@ def _check_flags(args) -> None:
 
 
 def _check_procs_flags(args) -> None:
-    """``--procs``: the table runtime only, and a stop for what does not
-    run over processes yet (ROADMAP queue 1)."""
+    """``--procs``: the table runtime only, without the actor-runtime
+    flags."""
     if args.dist_backend and not args.procs:
         raise SystemExit("--dist-backend picks the backend of --procs")
     if not args.procs:
@@ -1176,15 +1402,12 @@ def _check_procs_flags(args) -> None:
     if args.runtime != "table" or args.workload != "language":
         raise SystemExit("--procs runs the ranks of --runtime table as "
                          "processes (language workload)")
-    for flag, on in (("--ckpt-dir", args.ckpt_dir),
-                     ("--ckpt-every", args.ckpt_every is not None),
-                     ("--resume", args.resume), ("--adaptive", args.adaptive),
-                     ("--chaos", args.chaos), ("--recover", args.recover)):
+    for flag, on in (("--adaptive", args.adaptive), ("--chaos", args.chaos),
+                     ("--recover", args.recover)):
         if on:
             raise SystemExit(
-                f"{flag} under --procs: not yet (ROADMAP queue 1: a "
-                f"checkpoint gathers every rank's ZeRO-1 state, and "
-                f"resume, recovery and the adaptive loop build on it)")
+                f"{flag} under --procs: an actor-runtime flag; --procs runs "
+                f"the ranks of the table runtime as processes")
 
 
 def _check_table_flags(args) -> None:

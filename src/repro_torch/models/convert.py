@@ -50,9 +50,11 @@ from repro_torch.models.moe import take_shard
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
+    """A tensor of ``a`` on ``device``; on the CPU it may share a writable,
+    contiguous ``a``'s memory (a copy of any other)."""
     if isinstance(a, torch.Tensor):
         return a.to(device)
-    a = np.array(a)  # writable, contiguous copy
+    a = np.require(a, requirements=("C", "W"))
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
@@ -336,19 +338,19 @@ def _count_leaves(tree) -> int:
 # the schedule-table executor's per-rank parameters and ZeRO-1 state
 # ---------------------------------------------------------------------------
 def rank_params_from_reference(model: ArchModel, mesh, stage_params_np: dict,
-                               io_params_np: dict, device
+                               io_params_np: dict, device, ranks=None
                                ) -> tuple[list[StageParams], list[IOParams]]:
     """Every rank's own stage module (its ``model`` index's stage) and io
     module holding the reference's stacked ``[S, ...]`` weights: each rank
     gets its own copy, as each device holds its own, and of a leaf sharded
     over ``data`` (the MoE layouts' experts) its data index's shard; lists
-    by rank, of the mesh's local ranks (None for a rank of another
-    process)."""
+    by rank, of ``ranks`` (by default the mesh's local ranks; None for the
+    others)."""
     data = mesh.shape["data"]
     stage_params: list = [None] * mesh.size
     io_params: list = [None] * mesh.size
     with torch.no_grad():
-        for r in mesh.local_ranks:
+        for r in mesh.local_ranks if ranks is None else ranks:
             c = mesh.coords(r)
             s = c["model"]
             sp = model.init_stage_params(s, seed=None, device=device,
@@ -370,16 +372,24 @@ def _every_rank_local(mesh, what: str) -> None:
     """A conversion to the reference's global layout reads every rank's
     state: on a mesh of processes the other ranks' are elsewhere."""
     if len(mesh.local_ranks) != mesh.size:
-        raise ValueError(
-            f"{what} reads every rank's state; {mesh!r} holds rank(s) "
-            f"{list(mesh.local_ranks)} only (a gather over processes is "
-            f"ROADMAP queue 1: checkpoints under --procs)")
+        raise ValueError(f"{what} reads every rank's state; {mesh!r} holds "
+                         f"rank(s) {list(mesh.local_ranks)} only")
+
+
+def _every_rank_given(per_rank: list, what: str) -> None:
+    """A conversion to the global layout needs an entry for every rank (on
+    a mesh of processes: gathered to one host, as ``launch/train.py``'s
+    table checkpoint gathers them)."""
+    missing = [r for r, v in enumerate(per_rank) if v is None]
+    if missing:
+        raise ValueError(f"{what} reads every rank's state; rank(s) "
+                         f"{missing} are not in this process")
 
 
 def _gathered(model: ArchModel, mesh, stage_params, value):
     """Per stage, ``value(p)`` of each parameter of its data-index-0 rank,
     a leaf sharded over ``data`` concatenated over the data ranks."""
-    _every_rank_local(mesh, "the reference's global layout")
+    _every_rank_given(stage_params, "the reference's global layout")
     data = mesh.shape["data"]
     out = []
     for s in range(model.num_stages):
@@ -437,44 +447,68 @@ def zero1_state_to_reference(model: ArchModel, mesh, partition,
     stage ``s`` and dp index ``i``; the reference's ``P("model",
     dp_axes)`` of its ``[1, n]`` rank shards) and
     ``["experts"][leaf]["m"|"v"]`` ``[S, l_max, ...]`` (data shards
-    concatenated along their spec's ``data`` dim)."""
-    _every_rank_local(mesh, "zero1_state_to_reference")
+    concatenated along their spec's ``data`` dim).  Each rank's tensor is
+    copied once, from its device, into its place in the global array
+    (bf16 widened to float32)."""
+    _every_rank_given(opt_states, "zero1_state_to_reference")
     S, dp = model.num_stages, mesh.group_size(dp_axes)
     where: dict[tuple[int, int], int] = {}
     for r in range(mesh.size):
         where.setdefault((mesh.coords(r)["model"],
                           mesh.group_index(dp_axes, r)), r)
+
+    def place(kind, k, name, parts: int, dim: int):
+        """The global array of leaf ``k``'s ``name``: stage ``s``'s
+        ``parts`` tensors (dp index ``i``'s at part ``i``) side by side
+        along ``dim`` of its row."""
+        first = opt_states[where[0, 0]][kind][k][name]
+        shape = list(first.shape)
+        size = shape[dim]
+        shape[dim] *= parts
+        out = np.empty((S, *shape), dtype=_host_dtype(first))
+        for s in range(S):
+            for i in range(parts):
+                t = opt_states[where[s, i]][kind][k][name]
+                if t.shape != first.shape:
+                    raise ValueError(f"{kind} {k} {name}: stage {s} dp "
+                                     f"{i} holds {tuple(t.shape)}, stage 0 "
+                                     f"{tuple(first.shape)}")
+                idx = (s,) + (slice(None),) * dim + (
+                    slice(i * size, (i + 1) * size),)
+                torch.from_numpy(out[idx]).copy_(t.detach())
+        return out
+
     out: dict = {"shards": {}, "experts": {}}
     for k, st in opt_states[0]["shards"].items():
-        out["shards"][k] = {
-            name: np.stack([np.concatenate([
-                _host(opt_states[where[s, i]]["shards"][k][name])
-                for i in range(dp)]) for s in range(S)])
-            for name in st}
+        out["shards"][k] = {name: place("shards", k, name, dp, 0)
+                            for name in st}
     for k, st in opt_states[0]["experts"].items():
         dim = _data_dim(partition.stage_specs[k])
-        out["experts"][k] = {}
-        for name in st:
-            per_stage = []
-            for s in range(S):
-                parts = [_host(opt_states[where[s, i]]["experts"][k][name])
-                         for i in range(dp if dim is not None else 1)]
-                per_stage.append(np.concatenate(parts, axis=dim)
-                                 if dim is not None else parts[0])
-            out["experts"][k][name] = np.stack(per_stage)
+        out["experts"][k] = {
+            name: place("experts", k, name, 1, 0) if dim is None
+            else place("experts", k, name, dp, dim) for name in st}
     return out
+
+
+def _host_dtype(t: torch.Tensor) -> np.dtype:
+    """The numpy dtype :func:`_host` gives ``t`` (bf16 widened)."""
+    if t.dtype == torch.bfloat16:
+        return np.dtype(np.float32)
+    return torch.empty((), dtype=t.dtype).numpy().dtype
 
 
 def zero1_state_from_reference(model: ArchModel, mesh, partition,
                                tree: dict, device,
                                dp_axes: tuple = ("data",),
-                               expert_dtype=torch.float32) -> list[dict]:
-    """The inverse of :func:`zero1_state_to_reference`: each local rank's
-    state (shards float32, expert state in ``expert_dtype``), in a list by
-    rank (None for a rank of another process)."""
+                               expert_dtype=torch.float32,
+                               ranks=None) -> list[dict]:
+    """The inverse of :func:`zero1_state_to_reference`: the state of each
+    rank of ``ranks`` (by default the mesh's local ranks; shards float32,
+    expert state in ``expert_dtype``), in a list by rank (None for the
+    others)."""
     dp = mesh.group_size(dp_axes)
     states: list = [None] * mesh.size
-    for r in mesh.local_ranks:
+    for r in mesh.local_ranks if ranks is None else ranks:
         s = mesh.coords(r)["model"]
         i = mesh.group_index(dp_axes, r)
         shards = {k: {name: tensor_from_numpy(

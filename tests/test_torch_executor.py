@@ -28,7 +28,9 @@ weights (carried across with ``models.convert``) and the same batches:
   matches the reference's: params and master within 1e-4, m and v within
   one bf16 ulp of the leaf's max (the launcher runs at the bf16 defaults);
 * a checkpoint of the port's table loop has the reference's leaves and
-  shapes;
+  shapes; the reference's step-2 checkpoint also resumes under ``--procs``
+  (eight processes): steps 2 and 3 within 1e-4 relative, and its step-4
+  checkpoint with the reference's leaves and shapes;
 * the enc-dec forward: reduced seamless-m4t-large-v2 (2 encoder + 2
   decoder layers, one per stage) on the same 2 x 4 mesh, seq 16 and
   ``ExecOptions(enc_len=24)`` encoder frames (so the cross-attention has
@@ -522,6 +524,36 @@ def test_reference_checkpoint_resumes_in_the_port(reference, tmp_path):
                 assert err <= _bf16_ulp(float(np.abs(b[k]).max())), k
             else:
                 assert err <= TOL, k
+
+
+def test_reference_checkpoint_resumes_under_procs(reference, tmp_path):
+    """The reference's step-2 checkpoint through ``--procs`` (eight
+    processes, gloo): rank 0 reads it and moves each rank its own state;
+    steps 2 and 3 match the reference launcher's within TOL, and the
+    step-4 checkpoint, gathered through rank 0's host, has the
+    reference's leaves and shapes."""
+    ck = _step_2_checkpoint(reference, tmp_path)
+    want = json.loads((reference / "launcher_losses.json").read_text())
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        run = train.main(TABLE_ARGS + ["--device", "cpu", "--ckpt-dir",
+                                       str(ck), "--resume", "--ckpt-every",
+                                       "2", "--procs"])
+    finally:
+        torch.set_num_threads(n)
+    assert run.ckpt_log[0]["op"] == "resume" and len(run.losses) == 2
+    assert len(run.ranks) == DATA * S
+    for loss, step in zip(run.losses, ("2", "3")):
+        assert abs(loss - want[step]) <= TOL * abs(want[step]), step
+    mine = json.loads((ck / "step_4" / "manifest.json").read_text())
+    theirs = json.loads(
+        (reference / "ck" / "step_4" / "manifest.json").read_text())
+    assert mine["leaves"] == theirs["leaves"] and mine["shards"] == 1
+    with np.load(ck / "step_4" / "shard_0.npz") as a, \
+            np.load(reference / "ck" / "step_4" / "shard_0.npz") as b:
+        for k in theirs["leaves"]:
+            assert a[k].shape == b[k].shape, k
 
 
 def test_port_checkpoint_has_the_reference_leaves(reference, tmp_path):

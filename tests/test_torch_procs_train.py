@@ -11,8 +11,8 @@ thread mesh, gloo on the CPU, one intra-op thread on both sides.
 * ``train.main([... "--runtime", "table", "--procs", "--device", "cpu"])``:
   rank 0's losses and gnorms bitwise the thread run's of the same command,
   the same collectives a step summed over the ranks, every rank's report
-  back and the data replicas' digests equal; the flags that do not run
-  over processes yet stop before a world starts.
+  back and the data replicas' digests equal; the actor-runtime flags stop
+  before a world starts (checkpoints: ``tests/test_torch_procs_ckpt.py``).
 """
 import dataclasses
 
@@ -128,8 +128,8 @@ def test_the_cli_with_procs_gives_the_thread_runs_bits():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--ckpt-dir", "ck"], "--ckpt-dir under --procs: .*ROADMAP queue 1"),
-    (["--resume", "--ckpt-dir", "ck"], "under --procs: .*ROADMAP"),
+    (["--adaptive"], "--adaptive under --procs: an actor-runtime flag"),
+    (["--recover"], "--recover under --procs: an actor-runtime flag"),
     (["--chaos", "C1"], "--chaos under --procs"),
     (["--dist-backend", "nccl"], "--device cpu takes gloo"),
 ])
