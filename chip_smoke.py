@@ -14,7 +14,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    tolerance; then the kernel's time at each main path's shape beside its
    plain version's, one library call's (a yardstick only: the port never
    calls it) and the card's bound for the same work;
-   K1 also with ``causal=False`` (the enc-dec encoder and
+   K1 also in float32 at the examples' shapes (the reduced configs'
+   head_dim 16, which only its float32 kernel takes), and with
+   ``causal=False`` (the enc-dec encoder and
    cross-attention) at sq == sk and sq != sk with ragged edges, in both
    dtypes, and the plain attention backward there against autograd of
    the plain forward;
@@ -122,7 +124,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    rank) against the unsharded 1 x 4 run from two positions, then the
    ``long_500k`` cell through ``launch.cells.build_cell`` on the same
    weights and caches (the ``sp_mode`` run's bits), each run's ms a step,
-   peak memory, launches and collectives a step printed;
+   peak memory, launches and collectives a step printed; then
+   ``serve --procs`` (``phase_serve_procs_path``): ``paper-gpt3-large`` on
+   2 x 4 as eight processes (gloo), every rank warmed at once, its tokens
+   bit for bit the thread run's, its collectives a step and K2 launches
+   summed over the processes the thread run's, each process's peak and
+   the card's ``memory.used`` printed, ``--dist-backend nccl`` with 8
+   ranks on one card stopping before a world starts; last, the examples
+   (``phase_examples``): ``repro_torch.examples`` quickstart, serve_batch,
+   train_lm (4 steps, its loss falling) and async_runtime on the card
+   at the reference examples' sizes, each launching K1 and K2 as the code
+   counts;
 6. right after the language main paths (``phase_runtime_flags``), the
    runtime flags on paper-gpt3-large at full width cut to 4 layers (1 a
    stage): telemetry
@@ -143,6 +155,7 @@ result JSON.  A copy of the record goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -186,6 +199,12 @@ ATTN_SHAPES = [
     (1, 2048, 16, 16, 64, 0),
     (1, 4096, 16, 16, 96, 0),
 ]
+#: K1 at the examples' shapes, float32 only (b, sq, hq, hkv, hd, window):
+#: the reduced configs' head_dim 16, which only the float32 scalar kernel
+#: takes (quickstart's 64-token rows, async_runtime's two rows of 16, a
+#: windowed GQA case), and train_lm's heads of 64 at seq 128
+EXAMPLE_ATTN_SHAPES = [(1, 64, 4, 4, 16, 0), (2, 16, 4, 4, 16, 0),
+                       (1, 100, 4, 1, 16, 8), (1, 128, 4, 4, 64, 0)]
 #: K1 with causal=False, (b, sq, sk, hq, hkv, hd): seamless's encoder and
 #: cross-attention (2048 decoder tokens, 2048 encoder frames), a
 #: cross-attention over fewer frames, the small table check's (256 tokens
@@ -253,6 +272,12 @@ PATH_SHAPES = {
     # the train_4k cell through launch/cells.build_cell (phase_cells_path)
     "paper-gpt3-large train_4k": {"attn": [ATTN_SHAPES[-1]],
                                   "norm": [(4096, 1536)], "ssd": []},
+    # the examples (phase_examples): reduced configs, float32; train_lm's
+    # d 256
+    "examples": {"attn": [EXAMPLE_ATTN_SHAPES[0] + ("float32",),
+                          EXAMPLE_ATTN_SHAPES[-1] + ("float32",)],
+                 "norm": [(64, 64, "float32"), (128, 256, "float32")],
+                 "ssd": []},
 }
 
 COMMON_ARGS = ["--runtime", "actor", "--full-size", "--stages", "4",
@@ -533,6 +558,23 @@ def phase_attention(record):
             again, lse2 = fa.flash_attention_fwd(q, k, v, causal=True,
                                                  window=window)
             same_bits(f"{tag} second launch", (out, lse), (again, lse2))
+    for shape in EXAMPLE_ATTN_SHAPES:  # float32 only
+        window = shape[5]
+        q, k, v = attention_inputs(shape, torch.float32,
+                                   seed=hash(shape) % 2**31)
+        out, lse = fa.flash_attention_fwd(q, k, v, window=window)
+        torch.cuda.synchronize()
+        want, want_lse = fa.flash_attention_fwd_plain(q, k, v, window=window)
+        tag = f"b{shape[0]} s{shape[1]} hq{shape[2]} hkv{shape[3]} " \
+              f"hd{shape[4]} w{window} float32"
+        errs[shape, "float32"] = check_close(f"{tag} out", out, want,
+                                             TOL["float32"])
+        check_close(f"{tag} lse", lse, want_lse, TOL_LSE)
+        again, lse2 = fa.flash_attention_fwd(q, k, v, window=window)
+        same_bits(f"{tag} second launch", (out, lse), (again, lse2))
+    q, k, v = attention_inputs(EXAMPLE_ATTN_SHAPES[0], torch.bfloat16, seed=1)
+    expect_raise("K1 bf16 at head_dim 16 (the float32 kernel's only)",
+                 lambda: fa.flash_attention_fwd(q, k, v), ValueError)
     # the bf16 kernel's 16-byte copies refuse a view off 16-byte alignment
     b, sq, hq, hkv, hd, _ = ATTN_SHAPES[0]
     q, k, v = attention_inputs(ATTN_SHAPES[0], torch.bfloat16, seed=1)
@@ -877,6 +919,40 @@ def phase_decode(record):
         "src/repro/kernels/flash_decode.py:68", timings)
 
 
+#: the values drawn_on_card has drawn
+DRAWN = {"values": 0}
+
+
+def drawn_on_card(make):
+    """``make(device)``, a seeded init (a module or a list of modules), run
+    on the card and moved to the host.  A card-vs-CPU check needs the same
+    weights on both sides, not the host generator's stream, and at full
+    width drawing them on the host took most of a small phase's time
+    (``host_draw_seconds`` prints what it would take)."""
+    out = make("cuda")
+    for m in out if isinstance(out, list) else [out]:
+        m.to("cpu")
+        DRAWN["values"] += sum(p.numel() for p in m.parameters())
+    return out
+
+
+def host_draw_seconds(n: int = 50_000_000) -> float:
+    """The seconds the host would take to draw the small phases' weights
+    (``DRAWN``) with the models' own draw (``torch.randn`` from a seeded
+    generator, float32), timed on ``n`` values here; printed."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    torch.randn((n,), generator=gen, dtype=torch.float32)
+    rate = n / (time.perf_counter() - t0)
+    secs = DRAWN["values"] / rate
+    print(f"the small phases drew {DRAWN['values']:,} weight values on the "
+          f"card; this host draws {rate:,.0f} a second (timed on {n:,}), so "
+          f"drawing them here would have taken at least {secs:.1f} s")
+    return secs
+
+
 def small_config(arch: str, layers: int):
     import dataclasses
 
@@ -937,9 +1013,10 @@ def phase_small_model():
     for arch, layers, s in SMALL_MODELS:
         cfg = small_config(arch, layers)
         model = build(cfg, num_stages=2)
-        sp_cpu = [model.init_stage_params(i, seed=3, device="cpu")
-                  for i in range(2)]
-        io_cpu = model.init_io_params(seed=3, device="cpu")
+        sp_cpu = [drawn_on_card(lambda d, i=i: model.init_stage_params(
+            i, seed=3, device=d)) for i in range(2)]
+        io_cpu = drawn_on_card(lambda d: model.init_io_params(seed=3,
+                                                              device=d))
         sp_gpu = [copy.deepcopy(sp).to("cuda") for sp in sp_cpu]
         io_gpu = copy.deepcopy(io_cpu).to("cuda")
         batch, aux = small_inputs(cfg, s)
@@ -1004,7 +1081,8 @@ def phase_small_multimodal():
     m = 2
     fns = MultimodalStageFns(model, MultimodalStageOptions(
         mb_rows=1, loss_scale=1.0 / (m * cfg.text_seq)))
-    params_cpu = model.init_stage_params(seed=3, device="cpu")
+    params_cpu = drawn_on_card(lambda d: model.init_stage_params(seed=3,
+                                                                device=d))
     arrays = multimodal_batch(cfg, m, 1, seed=5, step=0)
     out = {}
     for dev in ("cpu", "cuda"):
@@ -1102,9 +1180,9 @@ def phase_small_serve():
     cfg = dataclasses.replace(small_config("seamless-m4t-large-v2", 4),
                               encoder_layers=2)
     model = build(cfg, num_stages=2)
-    sp_cpu = [model.init_stage_params(s, seed=3, device="cpu")
-              for s in range(2)]
-    io_cpu = model.init_io_params(seed=3, device="cpu")
+    sp_cpu = [drawn_on_card(lambda d, s=s: model.init_stage_params(
+        s, seed=3, device=d)) for s in range(2)]
+    io_cpu = drawn_on_card(lambda d: model.init_io_params(seed=3, device=d))
     caches_cpu = [model.init_stage_cache(2, 64, 1024, device="cpu")
                   for _ in range(2)]
     g = torch.Generator().manual_seed(11)
@@ -1350,9 +1428,11 @@ def small_table_step(arch, layers, data, stages, seq, enc_len):
 
     def init_params(model, mesh, device):
         if not init:
-            init["sp"] = [model.init_stage_params(s, seed=3, device="cpu")
-                          for s in range(model.num_stages)]
-            init["io"] = model.init_io_params(seed=3, device="cpu")
+            init["sp"] = [drawn_on_card(
+                lambda d, s=s: model.init_stage_params(s, seed=3, device=d))
+                for s in range(model.num_stages)]
+            init["io"] = drawn_on_card(
+                lambda d: model.init_io_params(seed=3, device=d))
         data, stage_params = mesh.shape["data"], []
         for r in range(mesh.size):
             c = mesh.coords(r)
@@ -1839,6 +1919,39 @@ def phase_procs_path(runs):
     return out
 
 
+@contextlib.contextmanager
+def memory_used(every: float = 0.5):
+    """The card's ``memory.used`` (MiB) sampled every ``every`` s on a
+    thread while the block runs, into the list it yields."""
+    import threading
+
+    used: list[int] = []
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(every):
+            used.append(int(card("memory.used").split()[0]))
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        yield used
+    finally:
+        stop.set()
+        sampler.join()
+
+
+def before_spawn() -> None:
+    """Print what this process holds before it spawns a world."""
+    import torch
+
+    print(f"  this process before the spawn: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, host "
+          f"RSS {host_rss() / 2**30:.2f} GiB; card memory.used "
+          f"{card('memory.used')}")
+
+
 def procs_run(arch, name, argv, cfg=None):
     """``train_table`` with ``--procs`` (``cfg`` as ``table_run``'s): the
     processes' K1/K2 launches summed (each child counts from 0) must be
@@ -1847,8 +1960,6 @@ def procs_run(arch, name, argv, cfg=None):
     card's largest ``memory.used`` while the world ran (sampled every 0.5
     s) and the collectives a step.  Returns (run, summed launches, the
     largest process peak)."""
-    import threading
-
     import torch
 
     from repro_torch.configs import registry
@@ -1865,27 +1976,11 @@ def procs_run(arch, name, argv, cfg=None):
     args = train.parser().parse_args(argv)
     train._check_procs_flags(args)
     train._check_table_flags(args)
-    used: list[int] = []
-    stop = threading.Event()
-
-    def sample():
-        while not stop.wait(0.5):
-            used.append(int(card("memory.used").split()[0]))
-
     torch.cuda.empty_cache()
-    print(f"  this process before the spawn: "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
-          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, host "
-          f"RSS {host_rss() / 2**30:.2f} GiB; card memory.used "
-          f"{card('memory.used')}")
-    sampler = threading.Thread(target=sample, daemon=True)
-    sampler.start()
+    before_spawn()
     t0 = time.perf_counter()
-    try:
+    with memory_used() as used:
         run = train.train_table(args, cfg=cfg)
-    finally:
-        stop.set()
-        sampler.join()
     wall = time.perf_counter() - t0
     cfg = cfg or registry.get_arch(args.arch)
     model = build(cfg, num_stages=args.stages)
@@ -2067,16 +2162,22 @@ def warm_launches(model, data: int) -> dict[str, int]:
     """K1 and K2 launches of ``--procs``'s warm-up (``train._warm_up``):
     each rank one F and one fused B of its stage, counted as
     ``table_launches`` counts a table of those two ops."""
+    from repro_torch.pipeline.spec import OP_B, OP_F
+
+    return table_launches(
+        model, fused_table([[OP_F, OP_B]] * model.num_stages), data)
+
+
+def fused_table(ops_by_stage):
+    """A stand-in table of fused ops, ``ops_by_stage`` (``table_launches``
+    reads its ``spec.split_backward`` and ``ops``)."""
     import types
 
     import numpy as np
 
-    from repro_torch.pipeline.spec import OP_B, OP_F
-
-    table = types.SimpleNamespace(
+    return types.SimpleNamespace(
         spec=types.SimpleNamespace(split_backward=False),
-        ops=np.array([[OP_F, OP_B]] * model.num_stages))
-    return table_launches(model, table, data)
+        ops=np.array(ops_by_stage))
 
 
 def same_procs_bits(label, procs, thread) -> None:
@@ -2940,9 +3041,10 @@ def phase_small_serve_mesh():
               f"batch {batch}, cache {cache_len}, {tokens} tokens from pos "
               f"{pos0}, layout {model.moe_layout}), card vs CPU mesh, "
               f"float32:")
-        full = [model.init_stage_params(s, seed=3, device="cpu")
-                for s in range(stages)]
-        io_cpu = model.init_io_params(seed=3, device="cpu")
+        full = [drawn_on_card(lambda d, s=s: model.init_stage_params(
+            s, seed=3, device=d)) for s in range(stages)]
+        io_cpu = drawn_on_card(lambda d: model.init_io_params(seed=3,
+                                                              device=d))
         one = model.init_layer_cache(batch, cache_len, opts.enc_len,
                                      device="cpu")
         fill = tree_map(lambda t: torch.zeros(
@@ -3442,6 +3544,191 @@ def serve_mesh_gemma(smi) -> dict:
     return out
 
 
+def phase_serve_procs_path(runs):
+    """``serve --procs`` (``launch.serve.serve_procs``): paper-gpt3-large
+    at full size on 2 x 4, eight processes (gloo, payloads staged through
+    host memory), batch 8, cache 4096, MESH_TOKENS tokens, every rank
+    warmed at once first (``pipeline/decode.make_warm_fn``).  Its tokens
+    must be bit for bit those of ``serve_mesh_gpt3``'s thread run (which
+    equal the 1 x 4 run's), its collectives a step, summed over the
+    processes, the thread run's, and K2 launched as ``serve_launches``
+    counts a step, summed over the processes, plus the warm-up's (one
+    one-row group a data rank).  Prints the warm-up, the first step,
+    ms/step, each process's peak and the card's largest ``memory.used``;
+    ``--dist-backend nccl`` with 8 ranks on one card stops before a world
+    starts."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models.build import build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = card()
+    arch = "paper-gpt3-large"
+    argv = (["--arch", arch, "--tokens", str(MESH_TOKENS), "--devices", "8",
+             "--procs"] + SERVE_ARGS)
+    print(f"serve procs {arch}: python -m repro_torch.launch.serve "
+          + " ".join(argv))
+    args = serve.parser().parse_args(argv)
+    before_spawn()
+    t0 = time.perf_counter()
+    with memory_used() as used:
+        run = serve.serve(args)
+    wall = time.perf_counter() - t0
+    thread = runs[arch, "serve 2x4"][0]
+    if run.tokens != thread.tokens:
+        raise AssertionError(f"{arch} 2 x 4 --procs tokens {run.tokens} "
+                             f"differ from the thread run's {thread.tokens}")
+
+    def calls(r):
+        return [{k: n for k, (n, _) in step.items()}
+                for step in r.collectives]
+
+    if calls(run) != calls(thread):
+        raise AssertionError(f"{arch} 2 x 4 --procs collectives "
+                             f"{calls(run)}, threads {calls(thread)}")
+    model = build(registry.get_arch(arch), num_stages=4)
+    per_step, warm = serve_launches(model, 8), serve_launches(model, 2)
+    want = {k: MESH_TOKENS * n + warm[k] for k, n in per_step.items()}
+    counts = {k: sum(r["launches"][k] for r in run.ranks)
+              for k in run.ranks[0]["launches"]}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"{arch} 2 x 4 --procs launched {counts}, the "
+                             f"code counts {want}")
+    peaks = [r["peak_bytes"] for r in run.ranks]
+    rest = run.step_seconds[1:]
+    print(f"  {arch} 2 x 4 --procs: warm-up {run.warm_seconds:.3f} s, first "
+          f"step {run.step_seconds[0]:.3f} s, then "
+          f"{sum(rest) / len(rest) * 1e3:.2f} ms/step (threads: first "
+          f"{thread.step_seconds[0]:.3f} s, then "
+          f"{sum(thread.step_seconds[1:]) / len(rest) * 1e3:.2f} ms/step); "
+          f"step s {run.step_seconds}; {wall:.1f} s with the spawn  [{smi}]")
+    print(f"  tokens bit for bit the thread run's; collectives a step "
+          f"{calls(run)[-1]} (host s summed over the 8 processes: "
+          f"{ {k: round(sec, 3) for k, (_, sec) in run.collectives[-1].items()} }"
+          f"), the thread run's; launches summed over the processes "
+          f"{counts} (from the code: {MESH_TOKENS} steps x {per_step} and "
+          f"the warm-up's {warm})")
+    print("  peak memory a process (GiB): " + ", ".join(
+        f"rank {r['rank']} {r['peak_bytes'] / 2**30:.2f}" for r in run.ranks)
+        + f"; sum {sum(peaks) / 2**30:.2f}; card memory.used at most "
+        f"{max(used, default=0)} MiB")
+    try:
+        serve.main(argv + ["--dist-backend", "nccl"])
+    except SystemExit as e:
+        if "8 ranks on 1 card(s)" not in str(e):
+            raise AssertionError(f"--dist-backend nccl stopped with {e}")
+        print(f"  --dist-backend nccl, 8 ranks: SystemExit ({e})")
+    else:
+        raise AssertionError("serve --procs --dist-backend nccl with 8 "
+                             "ranks on one card did not stop")
+    return {(arch, "serve 2x4 procs"): (run, counts, max(peaks))}
+
+
+#: train_lm's steps on the card (its reference runs 200; ~4 s a step of
+#: the thread mesh here): its loss must fall, the reference example's
+#: assertion
+EXAMPLE_LM_STEPS = 4
+
+
+def phase_examples():
+    """The port's counterparts of the reference's four JAX-calling
+    examples (``repro_torch.examples``), each through its ``main`` on
+    ``cuda`` at the reference's sizes (train_lm at EXAMPLE_LM_STEPS
+    steps), between zeroed and read launch counts: quickstart (the
+    engine's 1F1B-vs-RRFP contrast, then 5 rrfp table steps of reduced
+    deepseek-7b on a 2 x 4 mesh of rank threads: K1 float32 at head_dim
+    16, K2), serve_batch (24 greedy tokens, batch 8, on 2 x 4: K2),
+    train_lm (the custom 256-wide LM on 2 x 4, ZeRO-1 AdamW with warm-up:
+    K1 float32 at head_dim 64, K2; its loss falls, which ``main``
+    asserts) and async_runtime (the simulated transport, then 3 steps of
+    thread-per-stage actors: K1, K2).  Each run launches K1 and K2
+    exactly as ``table_launches`` / ``serve_launches`` count them; losses
+    finite, tokens in the vocabulary."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core.taskgraph import PipelineSpec
+    from repro_torch.examples import async_runtime, quickstart, serve_batch
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServeRun
+    from repro_torch.launch.train import TrainRun
+    from repro_torch.models.build import build
+    from repro_torch.pipeline import schedules
+    from repro_torch.pipeline.spec import OP_B, OP_F
+
+    def launched(name, fn, argv):
+        print(f"example {name}: python -m repro_torch.examples.{name} "
+              + " ".join(argv))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        print(f"  {name}: {wall:.1f} s, launches {counts}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return out, counts, torch.cuda.max_memory_allocated(), wall
+
+    def expect(name, counts, want):
+        print(f"  {name}: launches from the code {want}")
+        if any(counts[k] != n for k, n in want.items()) or not all(want.values()):
+            raise AssertionError(f"example {name} launched {counts}, the "
+                                 f"code counts {want}")
+
+    deepseek = registry.reduced_config("deepseek-7b", num_layers=8)
+    out = {}
+    q, counts, mem, wall = launched("quickstart", quickstart.main,
+                                    ["--device", "cuda"])
+    model = build(deepseek, num_stages=4)
+    per = table_launches(model, schedules.rrfp(PipelineSpec(4, 8)), 2)
+    expect("quickstart", counts, {k: 5 * n for k, n in per.items()})
+    if not (len(q["losses"]) == 5 and all(map(math.isfinite, q["losses"]))
+            and q["rrfp"].makespan < q["fixed"].makespan):
+        raise AssertionError(f"quickstart: losses {q['losses']}, makespans "
+                             f"{q['fixed'].makespan} / {q['rrfp'].makespan}")
+    out["example", "quickstart"] = (
+        TrainRun(losses=q["losses"], step_seconds=[wall]), counts, mem)
+
+    rows, counts, mem, wall = launched("serve_batch", serve_batch.main,
+                                       ["--device", "cuda"])
+    expect("serve_batch", counts, {"rmsnorm": 24 * serve_launches(
+        model, 8)["rmsnorm"]})
+    if not all(0 <= t < deepseek.vocab_size for r in rows for t in r):
+        raise AssertionError(f"serve_batch: tokens {rows}")
+    out["example", "serve_batch"] = (
+        ServeRun(tokens=rows, step_seconds=[wall]), counts, mem)
+
+    argv = ["--device", "cuda", "--steps", str(EXAMPLE_LM_STEPS)]
+    losses, counts, mem, wall = launched("train_lm", train_lm.main, argv)
+    lm = build(train_lm.lm_config(256, 8, False), num_stages=4)
+    per = table_launches(lm, schedules.rrfp(PipelineSpec(4, 8)), 2)
+    expect("train_lm", counts,
+           {k: EXAMPLE_LM_STEPS * n for k, n in per.items()})
+    print(f"  train_lm losses {losses}: {losses[0]} -> {losses[-1]}")
+    out["example", "train_lm"] = (
+        TrainRun(losses=losses, step_seconds=[wall]), counts, mem)
+
+    a, counts, mem, wall = launched("async_runtime", async_runtime.main,
+                                    ["--device", "cuda"])
+    small = build(registry.reduced_config("deepseek-7b", num_layers=4), 2)
+    fb = fused_table([[OP_F] * 4 + [OP_B] * 4] * 2)  # 4 microbatches
+    expect("async_runtime", counts,
+           {k: 3 * n for k, n in table_launches(small, fb, 1).items()})
+    if not all(map(math.isfinite, a["losses"])):
+        raise AssertionError(f"async_runtime: losses {a['losses']}")
+    out["example", "async_runtime"] = (
+        TrainRun(losses=a["losses"], step_seconds=[wall]), counts, mem)
+    ops.reset_launch_counts()
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     t_start = time.perf_counter()
@@ -3495,6 +3782,7 @@ def main(argv=None) -> int:
     for fn in (phase_small_model, phase_small_multimodal, phase_small_serve,
                phase_small_table, phase_small_serve_mesh):
         timed(fn)
+    host_draw_seconds()
     runs = timed(phase_main_path)
     torch.cuda.empty_cache()
     runs.update(timed(phase_table_path, runs))
@@ -3504,6 +3792,9 @@ def main(argv=None) -> int:
                phase_runtime_flags, phase_multimodal_path, phase_serve_path):
         runs.update(timed(fn))
     runs.update(timed(phase_serve_mesh_path, runs))
+    torch.cuda.empty_cache()
+    runs.update(timed(phase_serve_procs_path, runs))
+    runs.update(timed(phase_examples))
     kernels = []
     for name, rec in record.items():
         by_path = {f"{arch} {run}": c[name] for (arch, run), (_, c, _)

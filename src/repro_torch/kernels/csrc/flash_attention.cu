@@ -41,7 +41,9 @@
 //    stores.  No atomics and a fixed reduction order: two calls on the
 //    same inputs give the same bits.
 // float32: a scalar kernel (64x64 tiles of float32 FMAs in shared memory),
-// kept for the float32 checks, which TF32 tensor cores could not meet.
+// kept for the float32 checks, which TF32 tensor cores could not meet; it
+// also takes head_dim 16, the reduced configs' (the bf16 kernel's k16 steps
+// and 16-byte rows start at 32).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -707,6 +709,10 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
              strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16:  // the reduced configs (float32): the scalar kernel only
+      if (dtype != 0) return cudaErrorInvalidValue;
+      return f32::launch<16>(q, k, v, o, lse, b, hq, hkv, sq, sk, st, causal,
+                             window, s);
     case 32:
       return launch<32>(dtype, q, k, v, o, lse, b, hq, hkv, sq, sk, st,
                         causal, window, s);

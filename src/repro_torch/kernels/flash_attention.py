@@ -20,7 +20,8 @@ the window, and launches the longest causal query tiles first.  Its
 16-byte copies need every pointer 16-byte aligned and the batch, head and
 seq strides of q, k, v and the output multiples of 8 elements; the wrapper
 raises otherwise.  float32 runs a scalar kernel (float32 FMAs), which keeps
-the float32 checks' tolerance that TF32 tensor cores could not meet.
+the float32 checks' tolerance that TF32 tensor cores could not meet, and
+which also takes the reduced configs' head_dim 16.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ from repro_torch.kernels.ref import NEG_INF
 
 COUNTER = _build.LaunchCounter("flash_attention_fwd")
 HEAD_DIMS = (32, 64, 96, 128, 256)
+#: the float32 scalar kernel also takes the reduced configs' head_dim 16
+HEAD_DIMS_F32 = (16,) + HEAD_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -83,9 +86,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_fwd takes float32/bfloat16 q, k, v "
                         f"of one dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
-    if hd not in HEAD_DIMS or k.shape[-1] != hd or v.shape != k.shape:
-        raise ValueError(f"flash_attention_fwd: head_dim {hd} (kernel takes "
-                         f"{HEAD_DIMS}), k {tuple(k.shape)}, "
+    dims = HEAD_DIMS_F32 if q.dtype == torch.float32 else HEAD_DIMS
+    if hd not in dims or k.shape[-1] != hd or v.shape != k.shape:
+        raise ValueError(f"flash_attention_fwd: head_dim {hd} (the {q.dtype} "
+                         f"kernel takes {dims}), k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     if hq % hkv or k.shape[0] != b:
         raise ValueError(f"flash_attention_fwd: q heads {hq} not a multiple "

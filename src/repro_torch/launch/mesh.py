@@ -201,12 +201,17 @@ class MeshBase:
         """Wait until every process of the mesh gets here (nothing for the
         one process of a thread mesh): a timed loop starts together."""
 
-    def counts_over_ranks(self) -> dict[str, tuple[int, float]]:
+    def local_counts(self) -> dict[str, tuple[int, float]]:
         """Collective name -> (calls, host seconds inside them), summed
-        over every rank of the mesh."""
+        over this process's ranks (every rank of a thread mesh)."""
         with self._count_lock:
             return {k: (n, self.seconds[k])
                     for k, n in sorted(self.counts.items())}
+
+    def counts_over_ranks(self) -> dict[str, tuple[int, float]]:
+        """Collective name -> (calls, host seconds inside them), summed
+        over every rank of the mesh."""
+        return self.local_counts()
 
     def exchange_over(self, axes) -> Callable[[str, torch.Tensor],
                                               torch.Tensor]:

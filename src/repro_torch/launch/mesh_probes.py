@@ -278,6 +278,68 @@ def serve(mesh, tag: str) -> dict:
     return out
 
 
+def reference_serve_init(sp_tree: dict, io_tree: dict, cache_tree: dict,
+                         model, mesh, device) -> tuple[list, list, list]:
+    """``launch.serve.build_server``'s ``init`` from the reference's
+    stacked weights and caches (numpy trees, as its serve test saves them):
+    each local rank's stage module, io module and cache shard
+    (``convert.rank_params_from_reference``, ``rank_caches_from_
+    reference`` with the caches sharded over the data ranks on their
+    batch)."""
+    from repro_torch.models.convert import (
+        rank_caches_from_reference,
+        rank_params_from_reference,
+    )
+    from repro_torch.pipeline.decode import DecodeOptions, cache_specs
+
+    sp, io = rank_params_from_reference(model, mesh, sp_tree, io_tree,
+                                        device)
+    specs = cache_specs(model, DecodeOptions(mb_rows=1, cache_len=1))
+    return sp, io, rank_caches_from_reference(model, mesh, cache_tree, specs,
+                                              device)
+
+
+def serve_reference(mesh, arch: str, layers: int, batch: int,
+                    cache_len: int, pos0: int, steps: int, first,
+                    trees: tuple) -> dict:
+    """``launch.serve.build_server`` of reduced ``arch`` on the mesh, its
+    weights and caches loaded from the reference's ``trees`` (``sp``,
+    ``io``, caches) through its ``init`` hook (:func:`reference_serve_init`),
+    then ``steps`` greedy steps of its rank program from ``pos0``, each
+    data rank fed its shard of ``first`` and then its own tokens: each
+    local rank's tokens a step, the last stage's float32 logits a step
+    (``head_logits`` of its hidden state; None elsewhere), and its caches
+    after the run."""
+    import functools
+
+    from repro_torch.launch.serve import build_server
+
+    s = build_server(arch, stages=mesh.shape["model"], layers=layers,
+                     batch=batch, cache_len=cache_len,
+                     data=mesh.shape["data"], mesh=mesh,
+                     init=functools.partial(reference_serve_init, *trees))
+    model, sp, io, caches = s["model"], s["sp"], s["io"], s["caches"]
+    n = batch // mesh.shape["data"]
+    first = torch.as_tensor(np.asarray(first)).long()
+    toks = mesh.per_rank(lambda r: first[
+        mesh.coords(r)["data"] * n:(mesh.coords(r)["data"] + 1) * n].to(
+        mesh.device))
+    out: dict = {r: {"tokens": [_host(toks[r])], "logits": []}
+                 for r in mesh.local_ranks}
+    for pos in range(pos0, pos0 + steps):
+        got = mesh.run(s["rank_fn"], mesh.per_rank(lambda r: (
+            sp[r], io[r], caches[r], {"tokens": toks[r]}, pos)))
+        for r in mesh.local_ranks:
+            toks[r], hidden = got[r]
+            out[r]["tokens"].append(_host(toks[r]))
+            with torch.inference_mode():
+                out[r]["logits"].append(None if hidden is None else _host(
+                    model.head_logits(io[r], hidden)[:, 0].float()))
+    for r in mesh.local_ranks:
+        out[r]["caches"] = _host(caches[r])
+    return out
+
+
 def reference_step(mesh, cfg, sched: str, mb: int, rows: int, seq: int,
                    sp_tree: dict, io_tree: dict, exec_kw: dict) -> dict:
     """One executor step (``pipeline.executor.make_train_fn``) of ``cfg``

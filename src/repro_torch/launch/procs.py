@@ -278,16 +278,16 @@ class ProcessMesh(MeshBase):
         """Collective name -> (calls, host seconds inside them), summed over
         every process (a collective over the whole world: every rank calls
         it)."""
-        with self._count_lock:
-            mine = (dict(self.counts), dict(self.seconds))
+        return sum_counts(self.all_objects(self.local_counts()))
+
+    def all_objects(self, obj) -> list:
+        """Every process's picklable host object ``obj``, by rank (a
+        collective over the whole world, on the headers' gloo group: every
+        rank calls it; not a collective of the rank programs, counted in no
+        :attr:`counts`)."""
         got: list = [None] * self.size
-        dist.all_gather_object(got, mine, group=self._host)
-        out: dict[str, tuple[int, float]] = {}
-        for counts, seconds in got:
-            for k, n in counts.items():
-                c, s = out.get(k, (0, 0.0))
-                out[k] = (c + n, s + seconds[k])
-        return dict(sorted(out.items()))
+        dist.all_gather_object(got, obj, group=self._host)
+        return got
 
     # ---- host transfers (checkpoints) -----------------------------------
     def move(self, x: torch.Tensor | None, src: int, dst: int,
@@ -563,6 +563,17 @@ class ProcessMesh(MeshBase):
                 np.argsort(idx), device=recv.device))
         self._count("all_to_all", t0)
         return out
+
+
+def sum_counts(counts: Sequence[dict]) -> dict[str, tuple[int, float]]:
+    """Several ranks' ``local_counts()`` summed: name -> (calls, host
+    seconds)."""
+    out: dict[str, tuple[int, float]] = {}
+    for c in counts:
+        for k, (n, sec) in c.items():
+            m, t = out.get(k, (0, 0.0))
+            out[k] = (m + n, t + sec)
+    return dict(sorted(out.items()))
 
 
 def _sum_rows(rows: torch.Tensor) -> torch.Tensor:

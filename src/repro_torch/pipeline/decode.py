@@ -151,15 +151,11 @@ def make_serve_fn(model: ArchModel, mesh, opts: DecodeOptions,
     dp_axes = opts.all_dp_axes
     fwd_perm = [(i, i + 1) for i in range(S - 1)]
     rows = [model.rows(s) for s in range(S)]
-    data_size = mesh.shape["data"]
-    exchange = mesh.exchange_over("data")
+    rank_aux = _rank_aux(model, mesh, opts)
 
     def fn(stage_params, io, caches, batch, pos):
         stage = mesh.axis_index("model")
-        aux = {"data_size": data_size, "moe_layout": model.moe_layout,
-               "exchange": exchange}
-        if opts.sp_mode:
-            aux["sp_axis"] = mesh.axis_group("data")
+        aux = rank_aux()
         with torch.inference_mode():
             device = io.embed.device
             recv: dict = {}  # group -> its activation from the last stage
@@ -192,6 +188,62 @@ def make_serve_fn(model: ArchModel, mesh, opts: DecodeOptions,
     key = "embeds" if cfg.embed_input else "tokens"
     batch_specs = {key: None if opts.sp_mode else (0, dp_axes)}
     return fn, cache_specs(model, opts), batch_specs
+
+
+def _rank_aux(model: ArchModel, mesh, opts: DecodeOptions):
+    """``aux()``: a rank's ``stage_decode`` aux on ``mesh`` (call it inside
+    ``mesh.run``): the MoE layouts' exchange over ``data``, and under
+    ``sp_mode`` the rank's ``data`` group."""
+    data_size = mesh.shape["data"]
+    exchange = mesh.exchange_over("data")
+
+    def aux() -> dict:
+        out = {"data_size": data_size, "moe_layout": model.moe_layout,
+               "exchange": exchange}
+        if opts.sp_mode:
+            out["sp_axis"] = mesh.axis_group("data")
+        return out
+
+    return aux
+
+
+def make_warm_fn(model: ArchModel, mesh, opts: DecodeOptions):
+    """The rank program ``warm(stage_params, io) -> None`` for ``mesh.run``:
+    each rank decodes one group of ``mb_rows`` rows through its stage once
+    (the last stage also takes its greedy tokens) at position 0, against a
+    throwaway cache of those rows, and keeps nothing.  A rank that is a
+    process of its own pays its first calls here (CUDA modules loaded at
+    first launch, cuBLAS handles), every rank at once, where the first
+    serve step would add them up stage after stage; the served caches and
+    positions are not touched.  Stage 0 embeds token 0 (zero embeddings
+    for an embed-input config), the others take zeros; an MoE layout's
+    exchanges run over every rank of the data group, in the same order.
+    Runs under ``torch.inference_mode()``."""
+    if opts.sp_mode:
+        raise ValueError("make_warm_fn: no throwaway cache shard under "
+                         "sp_mode")
+    cfg = model.cfg
+    S = model.num_stages
+    r = opts.mb_rows
+    rank_aux = _rank_aux(model, mesh, opts)
+
+    def warm(stage_params, io):
+        stage = mesh.axis_index("model")
+        device = io.embed.device
+        with torch.inference_mode():
+            cache = model.init_stage_cache(r, opts.cache_len, opts.enc_len,
+                                           device=device)
+            x = torch.zeros((r, 1, cfg.d_model), dtype=cfg.dtype,
+                            device=device)
+            if stage == 0 and not cfg.embed_input:
+                x = io.embed[torch.zeros((r,), dtype=torch.int64,
+                                         device=device)][:, None]
+            y, _ = model.stage_decode(stage_params, io, x, cache, 0,
+                                      rank_aux(), model.rows(stage))
+            if stage == S - 1:
+                _greedy(io, y, cfg)
+
+    return warm
 
 
 def make_staircase_fn(model: ArchModel, opts: DecodeOptions,

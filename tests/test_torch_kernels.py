@@ -651,6 +651,30 @@ def test_kernels_match_plain_versions_on_card(dtype):
 
 
 @pytest.mark.cuda
+def test_k1_takes_head_dim_16_in_float32_only_on_card():
+    """The reduced configs' head_dim 16: K1's float32 scalar kernel against
+    its plain version (causal, GQA with a window, ragged), two launches
+    bitwise; the bf16 kernel refuses it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode "
+                    "(chip_smoke.py runs it on the card)")
+    assert 16 in fa.HEAD_DIMS_F32 and 16 not in fa.HEAD_DIMS
+    for b, sq, hq, hkv, hd, window in [(1, 64, 4, 4, 16, 0),
+                                       (2, 100, 4, 1, 16, 8)]:
+        qn, kn, vn = attn_inputs(b, sq, hq, hkv, hd, seed=3)
+        q, k, v = (torch.from_numpy(a).to("cuda").transpose(1, 2)
+                   for a in (qn, kn, vn))
+        out, lse = fa.flash_attention_fwd(q, k, v, window=window)
+        want, want_lse = fa.flash_attention_fwd_plain(q, k, v, window=window)
+        close(out.cpu(), want.cpu().numpy(), TOL["float32"])
+        close(lse.cpu(), want_lse.cpu().numpy(), 1e-4)
+        again, _ = fa.flash_attention_fwd(q, k, v, window=window)
+        assert torch.equal(again, out)
+    with pytest.raises(ValueError, match="head_dim 16"):
+        fa.flash_attention_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_noncausal_k1_matches_plain_version_on_card(dtype):
     if not torch.cuda.is_available():

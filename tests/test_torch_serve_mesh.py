@@ -20,6 +20,16 @@ The cases:
   and its 8 (``tp``), the tokens exchanged over the data ranks;
 * ``dp_seamless``: seamless-m4t-large-v2, seeded ``xk``/``xv`` (K3).
 
+``serve --procs`` (one process per rank, gloo, one intra-op thread): a
+2 x 2 world of four processes loads ``dp_dense``'s reference weights and
+caches through ``build_server``'s ``init`` hook (tokens equal, logits and
+every rank's caches within 1e-4); the CLI with ``--procs`` gives the
+thread mesh's tokens bit for bit and the same collectives a step summed
+over the ranks (deepseek-7b, deepseek-moe ``tp``, embed-input qwen2-vl,
+enc-dec seamless); processes started by
+hand join the world their variables set; the flags stop before a world
+starts.
+
 Two reference gaps (ROADMAP §3) are confirmed here on the reference's own
 runs, against its unsharded run from the same state, and refused by the
 port: (a) under ``sp_mode`` the ``dec``, ``moe``/``dense`` and zamba2
@@ -45,8 +55,9 @@ from repro.configs import registry as jreg
 from repro.models.build import build as jbuild
 from repro.pipeline import decode as jdecode
 from repro_torch.configs import registry
-from repro_torch.launch import serve
+from repro_torch.launch import mesh_probes, serve
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.procs import spawn_world
 from repro_torch.models.build import build, tree_map
 from repro_torch.models.convert import (
     cache_from_reference,
@@ -291,11 +302,9 @@ def test_tokens_and_logits_match_reference(reference, tag):
                                           got["logits"][:, 0])
 
 
-@pytest.mark.parametrize("tag", PARITY)
-def test_caches_after_the_run_match_reference_shard_by_shard(reference, tag):
-    final = _tree(np.load(reference / f"{tag}.npz"), "final")
-    got = _port_run(reference, tag)
-    mesh, specs = got["mesh"], got["specs"]
+def _check_caches(final: dict, caches: list, mesh, specs) -> None:
+    """Every rank's caches against its shard of the reference's final
+    caches, within TOL."""
     n = 0
     for r in range(mesh.size):
         s = mesh.coords(r)["model"]
@@ -308,9 +317,53 @@ def test_caches_after_the_run_match_reference_shard_by_shard(reference, tag):
                                   mesh.group_index(axes, r))
             np.testing.assert_allclose(t.numpy(), want, atol=TOL, rtol=TOL)
 
-        tree_map(check, got["caches"][r], final, specs)
+        tree_map(check, caches[r], final, specs)
         n += 1
     assert n == mesh.size
+
+
+@pytest.mark.parametrize("tag", PARITY)
+def test_caches_after_the_run_match_reference_shard_by_shard(reference, tag):
+    final = _tree(np.load(reference / f"{tag}.npz"), "final")
+    got = _port_run(reference, tag)
+    _check_caches(final, got["caches"], got["mesh"], got["specs"])
+
+
+def test_serve_over_processes_from_the_reference_matches_it(reference):
+    """``dp_dense`` on a 2 x 2 world of four processes (gloo, one intra-op
+    thread): ``launch.serve.build_server(mesh=...)`` loads the reference's
+    weights and caches through its ``init`` hook in every process
+    (``mesh_probes.serve_reference``); the tokens are the reference's, the
+    logits and every rank's caches after the run within TOL."""
+    tag = "dp_dense"
+    arrays = np.load(reference / f"{tag}.npz")
+    arch, layers, _, _, data, stages, batch, cache_len, _, pos0, steps = (
+        CASES[tag])
+    trees = tuple(_tree(arrays, k) for k in ("sp", "io", "cache"))
+    got = mesh_probes.merge(spawn_world(
+        mesh_probes.serve_reference,
+        (arch, layers, batch, cache_len, pos0, steps, arrays["tokens"][0],
+         trees), data * stages, shape={"data": data, "model": stages},
+        device="cpu", deadline=120.0, threads=1))
+    model, mesh, opts, _ = _setup(tag)
+    lead = [mesh.rank_of(data=i) for i in range(data)]
+    last = [mesh.rank_of(data=i, model=stages - 1) for i in range(data)]
+    tokens = np.stack([np.concatenate([got[r]["tokens"][k].numpy()
+                                       for r in lead])
+                       for k in range(steps + 1)])
+    assert np.array_equal(tokens, arrays["tokens"]), (tokens,
+                                                      arrays["tokens"])
+    for r in got:  # every model rank holds its data shard's tokens
+        twin = lead[mesh.coords(r)["data"]]
+        assert all(torch.equal(a, b) for a, b in zip(got[r]["tokens"],
+                                                     got[twin]["tokens"]))
+    logits = np.stack([np.stack([got[r]["logits"][k].numpy() for r in last])
+                       for k in range(steps)])
+    assert logits.shape == arrays["logits"].shape
+    np.testing.assert_allclose(logits, arrays["logits"], atol=TOL, rtol=TOL)
+    _check_caches(_tree(arrays, "final"), [got[r]["caches"]
+                                           for r in range(mesh.size)],
+                  mesh, cache_specs(model, opts))
 
 
 @pytest.mark.parametrize("tag", GAPS)
@@ -400,6 +453,106 @@ def test_serve_cli_on_a_mesh_gives_the_one_rank_tokens():
         assert c["ppermute"][0] == 4 * 3 and c["psum"][0] == 4
     with pytest.raises(SystemExit, match="multiple of --stages"):
         serve.main(common + ["--devices", "3"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "deepseek-moe-16b",
+                                  "qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_serve_cli_with_procs_gives_the_thread_runs_bits(arch):
+    """``serve.main([... "--procs"])`` on 2 x 2 (four processes, gloo) and
+    the same command on the thread mesh, one intra-op thread on both
+    sides: the same tokens bit for bit and the same collectives a step
+    summed over the ranks (deepseek-moe-16b reduced: 8 experts, the ``tp``
+    layout; qwen2-vl-2b: embeddings in, each process taking its rows of
+    the seeded global draw; seamless: the enc-dec decode); every process
+    reports back."""
+    argv = ["--device", "cpu", "--arch", arch, "--layers", "3", "--stages",
+            "2", "--devices", "4", "--batch", "4", "--tokens", "3",
+            "--cache-len", "16"]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        procs = serve.main(argv + ["--procs"])
+        threads = serve.main(argv)
+    finally:
+        torch.set_num_threads(n)
+    assert procs.tokens == threads.tokens
+    assert len(procs.tokens) == 4 and len(procs.tokens[0]) == 4
+
+    def calls(run):
+        return [{k: c for k, (c, _) in step.items()}
+                for step in run.collectives]
+
+    assert calls(procs) == calls(threads) and len(calls(procs)) == 3
+    assert "ppermute" in calls(procs)[0] and "psum" in calls(procs)[0]
+    if arch == "deepseek-moe-16b":
+        assert calls(procs)[0]["all_gather"] > 0  # tp over the data ranks
+    assert [r["rank"] for r in procs.ranks] == [0, 1, 2, 3]
+    assert [r["coords"] for r in procs.ranks] == [
+        {"data": d, "model": m} for d in range(2) for m in range(2)]
+    assert all(r["peak_bytes"] == 0 for r in procs.ranks)  # the CPU
+    assert threads.ranks == [] and procs.warm_seconds > 0
+
+
+def test_serve_processes_started_by_hand_join_the_world_their_variables_set(
+        tmp_path):
+    """What ``torchrun`` does: two processes of ``python -m
+    repro_torch.launch.serve ... --procs`` with ``RANK``, ``WORLD_SIZE``
+    and ``LOCAL_RANK`` set (a ``file://`` store for the address) serve
+    their ranks of a 1 x 2 mesh; rank 0 prints the batch's rows, the
+    thread run's."""
+    from repro_torch.launch.procs import INIT_METHOD_ENV
+
+    argv = ["--device", "cpu", "--arch", "deepseek-7b", "--layers", "2",
+            "--stages", "2", "--devices", "2", "--batch", "2", "--tokens",
+            "2", "--cache-len", "8"]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK=str(rank), OMP_NUM_THREADS="1",
+                   PYTHONPATH=str(ROOT / "src"), **{
+                       INIT_METHOD_ENV: "file://" + str(tmp_path / "store")})
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv,
+             "--procs"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    rows = [re.findall(r"^ +(\[[\d, ]+\])$", o, re.M) for o in outs]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        threads = serve.main(argv)
+    finally:
+        torch.set_num_threads(n)
+    assert rows[0] == [str(r) for r in threads.tokens] and rows[1] == []
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--dist-backend", "gloo"], "--dist-backend picks the backend of "
+                                 "--procs"),
+    (["--procs", "--dist-backend", "nccl"], r"4 ranks on \d card"),
+    (["--procs", "--dist-backend", "nccl", "--device", "cpu"],
+     "--device cpu takes gloo"),
+])
+def test_serve_procs_flags_stop_before_a_world_starts(argv, match):
+    common = ["--arch", "deepseek-7b", "--layers", "2", "--stages", "2",
+              "--devices", "4", "--tokens", "1"]
+    with pytest.raises(SystemExit, match=match):
+        serve.main(common + argv)
+
+
+def test_serve_procs_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "deepseek-7b", "--layers", "2", "--stages",
+                    "2", "--tokens", "1", "--procs"])
 
 
 def test_cache_specs_match_the_reference():
