@@ -68,6 +68,9 @@ class RunResult:
     #: the run's :class:`repro_torch.obs.metrics.MetricsRegistry` (actor runtime
     #: with ``ActorConfig.metrics`` attached)
     metrics: object | None = None
+    #: thread substrate: the driver's ``time.perf_counter()`` origin;
+    #: ``start``/``end`` are seconds after it (``None``: a simulated run)
+    t0: float | None = None
 
     # ---- derived ----------------------------------------------------------
     def durations(self, kind: Kind) -> np.ndarray:

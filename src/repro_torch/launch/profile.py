@@ -26,17 +26,24 @@ deepseek-moe-16b --full-size --devices 8 --stages 4 --microbatches 4
 --mb-rows 1 --seq 2048 --schedule 1f1b`` for the MoE ``ep`` layout over
 two data ranks, whose exchanges' copies show as ``cat / stack`` and
 whose collectives' calls and host seconds are printed), and traces
-the third step with CUDA activity.  Prints the step's wall time, the device's
-busy time (union of kernel intervals; every stage shares the default
-stream) and idle share, the time per kernel category and the heaviest
-kernels, and writes the same as JSON to ``--out``.  Needs a GPU; the
-profiler's own host overhead lengthens the traced step, so the breakdown
-is of device time and the untraced step times are the wall-time record.
+the third step with CUDA activity, recording every thread's operators
+and ranges (``profile_all_threads``: the stage threads' too).  Prints
+the step's wall time, the device's busy time (union of kernel
+intervals; every stage shares the default stream) and its idle share of
+the step's host span (as the benchmark measures idle), that idle summed
+by the innermost program span (``rrfp.*``, ``obs/spans.py``) on any
+thread, the time per kernel category, the heaviest kernels and the host
+operators' self time on every thread, and writes the same as JSON to
+``--out``.  Needs a GPU; the profiler's own host overhead
+lengthens the traced step, so the breakdown is of device time and the
+untraced step times are the wall-time record.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
+import math
 import sys
 from pathlib import Path
 
@@ -80,6 +87,13 @@ CATEGORIES = (
 )
 
 
+#: the program's spans (``obs/spans.py``): the trainer's phases and the
+#: stage threads' tasks
+PROGRAM_SPANS = "rrfp."
+#: idle under no program span
+NO_SPAN = "(no program span)"
+
+
 def category(name: str) -> str:
     for cat, keys in CATEGORIES:
         if any(k in name for k in keys):
@@ -87,27 +101,67 @@ def category(name: str) -> str:
     return "other"
 
 
-def _union_us(intervals) -> float:
-    total, end = 0.0, None
+def _merged(intervals) -> list[list[float]]:
+    """The union of (start, end) intervals as sorted disjoint segments."""
+    out: list[list[float]] = []
     for a, b in sorted(intervals):
-        if end is None or a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def idle_by_span(gaps, spans) -> dict[str, float]:
+    """Each idle gap's time (``gaps``: sorted disjoint ``[a, b]``) summed
+    by the innermost program span (``spans``: ``(name, a, b)`` of any
+    thread, the latest-started one open) over each part of the gap."""
+    xs = sorted({x for _, a, b in spans for x in (a, b)})
+    # the innermost span open over each segment between two boundaries
+    names = [NO_SPAN]
+    for x0, x1 in zip(xs, xs[1:]):
+        m = (x0 + x1) / 2
+        open_ = [(a, n) for n, a, b in spans if a <= m < b]
+        names.append(max(open_)[1] if open_ else NO_SPAN)
+    names.append(NO_SPAN)
+    bounds = [-math.inf, *xs, math.inf]
+    out: dict[str, float] = {}
+    for a, b in gaps:
+        x = a
+        while x < b:
+            i = bisect.bisect_right(bounds, x) - 1
+            y = min(b, bounds[i + 1])
+            out[names[i]] = out.get(names[i], 0.0) + (y - x)
+            x = y
+    return out
 
 
 def breakdown(events, wall_s: float) -> dict:
-    # device-side events minus the profiler's own step annotation
+    """The traced step's device time by kernel and category, its idle
+    share of the step's host span (the ``ProfilerStep`` range, as the
+    benchmark measures idle) with the idle gaps summed by the innermost
+    program span (``rrfp.*``) on any thread, and the host operators' self
+    time."""
+    cuda = torch.autograd.DeviceType.CUDA
+    # device-side events minus the profiler's step annotation and the
+    # device-side copies of user annotations (record_function ranges)
     kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
+               if e.device_type == cuda
+               and not getattr(e, "is_user_annotation", False)
                and not e.name.startswith("ProfilerStep")]
-    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
-    busy_us = _union_us(spans)
-    window_us = (max(b for _, b in spans) - min(a for a, _ in spans)
-                 if spans else 0.0)
+    host = [e for e in events if e.device_type != cuda]
+    marks = [(e.time_range.start, e.time_range.end) for e in host
+             if e.name.startswith("ProfilerStep")]
+    segs = _merged((e.time_range.start, e.time_range.end) for e in kernels)
+    lo = min([a for a, _ in marks] + [s[0] for s in segs[:1]], default=0.0)
+    hi = max([b for _, b in marks] + [s[1] for s in segs[-1:]],
+             default=0.0)
+    busy_us = sum(b - a for a, b in segs)
+    edges = [lo] + [x for s in segs for x in s] + [hi]
+    gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges) - 1, 2)
+            if edges[i + 1] > edges[i]]
+    program = [(e.name, e.time_range.start, e.time_range.end) for e in host
+               if e.name.startswith(PROGRAM_SPANS)]
     by_cat: dict[str, float] = {}
     by_name: dict[str, list] = {}
     for e in kernels:
@@ -117,25 +171,33 @@ def breakdown(events, wall_s: float) -> dict:
         rec[0] += dur
         rec[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    host: dict[str, float] = {}
-    for e in events:
-        if (e.device_type == torch.autograd.DeviceType.CPU
-                and not e.name.startswith("ProfilerStep")):
-            host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total
-    return {
+    out = {
         "step_wall_s": wall_s,
-        "kernel_window_s": window_us / 1e6,
+        "step_span_s": (hi - lo) / 1e6,
         "device_busy_s": busy_us / 1e6,
-        "device_idle_share_of_window": 1.0 - busy_us / window_us
-        if window_us else None,
+        "device_idle_share": 1.0 - busy_us / (hi - lo) if hi > lo else None,
         "kernels": len(kernels),
+        "idle_by_span_s": {n: t / 1e6 for n, t in sorted(
+            idle_by_span(gaps, program).items(), key=lambda kv: -kv[1])},
         "by_category_s": dict(sorted(((k, v / 1e6) for k, v in by_cat.items()),
                                      key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:120], "total_s": t / 1e6, "calls": c,
                          "mean_us": t / c} for n, (t, c) in top],
-        "top_host_ops_self_s": {n: t / 1e6 for n, t in sorted(
-            host.items(), key=lambda kv: -kv[1])[:12]},
     }
+    self_us: dict[str, float] = {}
+    for e in host:
+        if not e.name.startswith(("ProfilerStep", PROGRAM_SPANS)):
+            self_us[e.name] = (self_us.get(e.name, 0.0)
+                               + e.self_cpu_time_total)
+    out["top_host_ops_self_s"] = {n: t / 1e6 for n, t in sorted(
+        self_us.items(), key=lambda kv: -kv[1])[:12]}
+    return out
+
+
+def all_threads_config():
+    """The profiler's setting that records every thread's operators and
+    ranges (the stage threads' too)."""
+    return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
 
 
 def main(argv=None) -> dict:
@@ -186,7 +248,8 @@ def main(argv=None) -> dict:
                         torch.profiler.ProfilerActivity.CUDA],
             schedule=torch.profiler.schedule(skip_first=1, wait=0, warmup=1,
                                              active=1, repeat=1),
-            on_trace_ready=ready) as prof:
+            on_trace_ready=ready,
+            experimental_config=all_threads_config()) as prof:
         run = run_fn(args, step_hook=lambda *_: prof.step(), **kw)
     out = breakdown(captured["events"], run.step_seconds[2])
     if not out["kernels"]:
@@ -198,11 +261,13 @@ def main(argv=None) -> dict:
         out["collectives"] = {k: {"calls": n, "host_s": sec} for k, (n, sec)
                               in run.collectives[2].items()}
     out["card"] = torch.cuda.get_device_name(0)
-    print(f"traced step: wall {out['step_wall_s']:.3f} s, kernels span "
-          f"{out['kernel_window_s']:.3f} s, device busy "
+    print(f"traced step: wall {out['step_wall_s']:.3f} s, host span "
+          f"{out['step_span_s']:.3f} s, device busy "
           f"{out['device_busy_s']:.3f} s (idle "
-          f"{out['device_idle_share_of_window']:.1%} of the span), "
+          f"{out['device_idle_share']:.1%} of the host span), "
           f"{out['kernels']} kernels")
+    for n, t in out["idle_by_span_s"].items():
+        print(f"  idle {t:8.4f} s  {n}")
     for cat, s in out["by_category_s"].items():
         print(f"  {cat:28s} {s:8.4f} s  {s / out['device_busy_s']:6.1%}")
     for k in out["top_kernels"]:

@@ -107,7 +107,7 @@ from repro_torch.multimodal import (
     multimodal_model,
 )
 from repro_torch.multimodal.stagefn import MultimodalStageOptions
-from repro_torch.obs import MetricsRegistry, export_perfetto
+from repro_torch.obs import MetricsRegistry, export_perfetto, spans
 from repro_torch.obs.report import explain
 from repro_torch.optim.adamw import (
     AdamWConfig,
@@ -443,94 +443,113 @@ def train_actor(args, *, cfg=None, init_params=None,
           f"stages={args.stages}  microbatches={args.microbatches}  "
           f"device={device}")
     for step in range(start_step, args.steps):
-        batch = _device_batch(
-            synth_batch(cfg, batch_size, args.seq, seed=args.seed, step=step),
-            device)
-        programs = [
-            ActorStageProgram(fns, s, stage_params[s], io_params, batch,
-                              split_backward=split)
-            for s in range(args.stages)
-        ]
+        # the step record (obs/spans.py) closes before the caller's hook
+        with spans.step(step, "rrfp.step") as rec:
+            with spans.span("rrfp.batch"):
+                batch = _device_batch(
+                    synth_batch(cfg, batch_size, args.seq, seed=args.seed,
+                                step=step),
+                    device)
+            with spans.span("rrfp.programs"):
+                programs = [
+                    ActorStageProgram(fns, s, stage_params[s], io_params,
+                                      batch, split_backward=split)
+                    for s in range(args.stages)
+                ]
 
-        def respawn(s, programs=programs, batch=batch):
-            # the stage's in-memory state died with it: rebuild its program
-            # from the latest checkpoint (under --ckpt-every 1 that is
-            # exactly the params this step started from) or, before the
-            # first checkpoint, from the live step-start params (the update
-            # runs in place only after the step)
-            sp_r, io_r = stage_params[s], io_params
-            if store is not None and store.latest_step() is not None:
+                def respawn(s, programs=programs, batch=batch):
+                    # the stage's in-memory state died with it: rebuild its
+                    # program from the latest checkpoint (under
+                    # --ckpt-every 1 that is exactly the params this step
+                    # started from) or, before the first checkpoint, from
+                    # the live step-start params (the update runs in place
+                    # only after the step)
+                    sp_r, io_r = stage_params[s], io_params
+                    if store is not None and store.latest_step() is not None:
+                        t0 = time.perf_counter()
+                        host, _ = store.restore_host(store.latest_step(),
+                                                     respawn_target)
+                        (sp_r,), io_r = params_from_reference(
+                            model, host["params"]["sp"],
+                            host["params"]["io"], device, stages=[s])
+                        run.ckpt_log.append(
+                            {"op": "respawn", "stage": s,
+                             "step": store.latest_step(),
+                             "seconds": time.perf_counter() - t0})
+                        print(f"recover: stage {s} restored from checkpoint "
+                              f"step {store.latest_step()}")
+                    programs[s] = ActorStageProgram(fns, s, sp_r, io_r, batch,
+                                                    split_backward=split)
+                    return programs[s]
+
                 t0 = time.perf_counter()
-                host, _ = store.restore_host(store.latest_step(),
-                                             respawn_target)
-                (sp_r,), io_r = params_from_reference(
-                    model, host["params"]["sp"], host["params"]["io"],
-                    device, stages=[s])
-                run.ckpt_log.append({"op": "respawn", "stage": s,
-                                     "step": store.latest_step(),
-                                     "seconds": time.perf_counter() - t0})
-                print(f"recover: stage {s} restored from checkpoint step "
-                      f"{store.latest_step()}")
-            programs[s] = ActorStageProgram(fns, s, sp_r, io_r, batch,
-                                            split_backward=split)
-            return programs[s]
-
-        t0 = time.perf_counter()
-        # recording costs lock traffic on the dispatch path: enable it only
-        # for the step whose trace is actually kept
-        record_this = _obs_record_step0(args, step, first=start_step)
-        acfg_step = (dataclasses.replace(acfg, respawn=respawn)
-                     if args.recover else acfg)
-        if scheduler is not None:
-            # iteration-boundary quiesce point: adopt the scheduler's
-            # current table (HINT_SWAP events mark mid-run adoptions only)
-            acfg_step = dataclasses.replace(
-                acfg_step, hint_table=scheduler.table,
-                hint_table_version=scheduler.version)
-        driver = ActorDriver(
-            spec, None,
-            dataclasses.replace(acfg_step, record_trace=True) if record_this
-            else acfg_step)
-        result = driver.run_threaded(programs)
-        grads = [g for p in programs for g in p.d_stage]
-        d_io = list(programs[0].d_io)
-        for p in programs[1:]:
-            d_io = [a if b is None else b if a is None else a + b
-                    for a, b in zip(d_io, p.d_io)]
-        gnorm = _global_norm(grads + d_io)
-        lr = apply_update(params, grads + d_io, mstate, vstate, step)
-        # one device sync per step: the programs keep the loss on device
-        loss = float(sum(p.loss_acc for p in programs)) / tokens
-        dt = time.perf_counter() - t0
-        run.losses.append(loss)
-        run.gnorms.append(float(gnorm))
-        run.step_seconds.append(dt)
-        if record_this:
-            run.trace = _save_trace(args, driver, step, loss)
-        bd = result.breakdown()
-        new_table = monitor.observe_result(result)
-        swap_note = ""
-        if scheduler is not None:
-            decision = scheduler.maybe_resynthesize(step)
-            if decision.swapped:
-                swap_note = (f"  [hint-swap v{scheduler.version} "
-                             f"ratio={decision.ratio:.3f}]")
-        print(f"step {step:4d}  loss {loss:8.4f}  lr {lr:.2e}  "
-              f"{dt*1e3:7.1f} ms  makespan {result.makespan*1e3:7.1f} ms  "
-              f"blocking {bd['blocking']*1e3:6.1f} ms"
-              + ("  [replan]" if new_table is not None else "")
-              + swap_note)
-        if store and (step + 1) % ckpt_every == 0:
-            t1 = time.perf_counter()
-            store.save(step + 1, _ckpt_tree(model, stage_params, io_params,
-                                            mstate, vstate),
-                       meta={"arch": args.arch, "step": step + 1})
-            nbytes = _step_bytes(store, step + 1)
-            run.ckpt_log.append({"op": "save", "step": step + 1,
-                                 "seconds": time.perf_counter() - t1,
-                                 "bytes": nbytes})
-            print(f"checkpoint step {step + 1}: {nbytes:,} bytes in "
-                  f"{run.ckpt_log[-1]['seconds']:.2f} s -> {args.ckpt_dir}")
+                # recording costs lock traffic on the dispatch path: enable
+                # it only for the step whose trace is actually kept
+                record_this = _obs_record_step0(args, step, first=start_step)
+                acfg_step = (dataclasses.replace(acfg, respawn=respawn)
+                             if args.recover else acfg)
+                if scheduler is not None:
+                    # iteration-boundary quiesce point: adopt the
+                    # scheduler's current table (HINT_SWAP events mark
+                    # mid-run adoptions only)
+                    acfg_step = dataclasses.replace(
+                        acfg_step, hint_table=scheduler.table,
+                        hint_table_version=scheduler.version)
+                driver = ActorDriver(
+                    spec, None,
+                    dataclasses.replace(acfg_step, record_trace=True)
+                    if record_this else acfg_step)
+            with spans.span("rrfp.pipeline"):
+                result = driver.run_threaded(programs)
+            with spans.span("rrfp.grads"):
+                grads = [g for p in programs for g in p.d_stage]
+                d_io = list(programs[0].d_io)
+                for p in programs[1:]:
+                    d_io = [a if b is None else b if a is None else a + b
+                            for a, b in zip(d_io, p.d_io)]
+                gnorm = _global_norm(grads + d_io)
+            with spans.span("rrfp.adamw"):
+                lr = apply_update(params, grads + d_io, mstate, vstate, step)
+            with spans.span("rrfp.loss_sync"):
+                # one device sync per step: the programs keep the loss on
+                # device
+                loss = float(sum(p.loss_acc for p in programs)) / tokens
+            dt = time.perf_counter() - t0
+            with spans.span("rrfp.after"):
+                run.losses.append(loss)
+                run.gnorms.append(float(gnorm))
+                run.step_seconds.append(dt)
+                if record_this:
+                    run.trace = _save_trace(args, driver, step, loss)
+                bd = result.breakdown()
+                new_table = monitor.observe_result(result)
+                swap_note = ""
+                if scheduler is not None:
+                    decision = scheduler.maybe_resynthesize(step)
+                    if decision.swapped:
+                        swap_note = (f"  [hint-swap v{scheduler.version} "
+                                     f"ratio={decision.ratio:.3f}]")
+                print(f"step {step:4d}  loss {loss:8.4f}  lr {lr:.2e}  "
+                      f"{dt*1e3:7.1f} ms  makespan "
+                      f"{result.makespan*1e3:7.1f} ms  "
+                      f"blocking {bd['blocking']*1e3:6.1f} ms"
+                      + ("  [replan]" if new_table is not None else "")
+                      + swap_note)
+                if store and (step + 1) % ckpt_every == 0:
+                    t1 = time.perf_counter()
+                    store.save(step + 1, _ckpt_tree(model, stage_params,
+                                                    io_params, mstate,
+                                                    vstate),
+                               meta={"arch": args.arch, "step": step + 1})
+                    nbytes = _step_bytes(store, step + 1)
+                    run.ckpt_log.append(
+                        {"op": "save", "step": step + 1,
+                         "seconds": time.perf_counter() - t1,
+                         "bytes": nbytes})
+                    print(f"checkpoint step {step + 1}: {nbytes:,} bytes in "
+                          f"{run.ckpt_log[-1]['seconds']:.2f} s -> "
+                          f"{args.ckpt_dir}")
+            rec.add_run(result)
         if step_hook is not None:
             step_hook(step)
     if monitor.replans:

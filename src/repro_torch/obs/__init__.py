@@ -17,6 +17,9 @@ imports this package except lazily from ``Trace.to_perfetto``):
                  the critical-path graph predict the new makespan
   report      -- one-shot explain(trace) health report + CLI
   export      -- Chrome trace-event / Perfetto JSON rendering of traces
+  spans       -- host spans of a training step on the perf_counter clock
+                 (profiler ranges while a profiler runs) and the step
+                 records they end in, with the tasks' own stamps
 
 See ``docs/observability.md`` for the metric catalogue and semantics.
 """

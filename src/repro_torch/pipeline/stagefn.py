@@ -36,6 +36,7 @@ from repro_torch.core.taskgraph import Kind, Task
 from repro_torch.models.build import ArchModel
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.phases import chain, phased_grads, run_forward
+from repro_torch.obs.spans import profiled
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,6 +300,9 @@ def accumulate(acc: list, grads) -> None:
 # ---------------------------------------------------------------------------
 # actor-runtime adapter
 # ---------------------------------------------------------------------------
+_TASK_RANGES = {k: f"rrfp.task.{k.name}" for k in Kind}
+
+
 class ActorStageProgram:
     """``work_fn(task, payload)`` for one stage actor driving real callables.
 
@@ -392,6 +396,12 @@ class ActorStageProgram:
         return len(self.w_pending)
 
     def __call__(self, task: Task, payload: Any) -> Any:
+        # a profiler range only: under a profiler that records every
+        # thread, the stage thread's operators sit under their task
+        with profiled(_TASK_RANGES[task.kind]):
+            return self._run(task, payload)
+
+    def _run(self, task: Task, payload: Any) -> Any:
         bm = microbatch(self.batch, task.mb, self.fns.opts.mb_rows)
         if task.kind == Kind.F:
             x = None if payload is None else payload.detach()

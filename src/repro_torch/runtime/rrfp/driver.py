@@ -1239,6 +1239,7 @@ class ActorDriver:
             spec=spec,
             trace=self.trace,
             metrics=cfg.metrics,
+            t0=t0,
         )
 
 
