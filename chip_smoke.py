@@ -20,7 +20,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    cross-attention) at sq == sk and sq != sk with ragged edges, in both
    dtypes, and the plain attention backward there against autograd of
    the plain forward;
-   every K1, K3 and K4 check launches twice and requires the same bits,
+   K1b (K1's bf16 backward) against the plain backward at every K1
+   shape in bf16, fed the forward kernel's out and lse, and timed at each
+   main path's shape beside the plain backward and SDPA's backward;
+   every K1, K1b, K3 and K4 check launches twice and requires the same bits,
    and each of their wrappers must refuse a view off 16-byte alignment
    (K4's bf16 kernel; its float32 kernel is the scalar one); K3 (flash
    decode) is also replayed from one CUDA graph at three lengths, written
@@ -291,25 +294,26 @@ MAIN_PATHS = [
     ("paper-gpt3-large",
      [("bf", ["--steps", "2", "--hint", "bf"]),
       ("bfw", ["--steps", "1"] + BFW)],
-     ("flash_attention_fwd", "rmsnorm"), None),
+     ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm"), None),
     # cut to 20 layers (5 a stage, 4 shared-block applications)
     ("zamba2-1.2b",
      [("bf", ["--steps", "1", "--hint", "bf"]),
       ("bfw", ["--steps", "1"] + BFW)],
-     ("flash_attention_fwd", "rmsnorm", "ssd_scan"), 20),
+     ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm", "ssd_scan"),
+     20),
     # the dense first layer and 3 MoE layers, one per stage: 2.27e9
     # parameters at ~14 B each on the card (bf16 weights and grads, float32
     # m and v); the 28 layers do not fit one card
     ("deepseek-moe-16b",
      [("bf", ["--steps", "1", "--hint", "bf"]),
       ("bfw", ["--steps", "1"] + BFW)],
-     ("flash_attention_fwd", "rmsnorm"), 4),
+     ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm"), 4),
     # the language workload: embeddings in, M-RoPE positions (synth_batch's
     # three equal streams), cut from 28 layers to 16 (4 a stage)
     ("qwen2-vl-2b",
      [("bf", ["--steps", "1", "--hint", "bf"]),
       ("bfw", ["--steps", "1"] + BFW)],
-     ("flash_attention_fwd", "rmsnorm"), 16),
+     ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm"), 16),
     # 7 mLSTM + 1 sLSTM layers (the 7:1 pattern's first block), bf for 1
     # step of 2 microbatches: the sLSTM's time loop is host-bound and runs
     # once a microbatch, 51-58 s a step of 8 with one sLSTM layer on one
@@ -393,6 +397,27 @@ def time_ms(fn, arg_sets, iters: int = 20, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * reps)
+
+
+def time_events_ms(fn, arg_sets, iters: int = 20) -> float:
+    """Device ms per call between two events, for a call that is not
+    captured in a CUDA graph (an autograd backward kept for reuse): a
+    spinning kernel holds the stream while the host enqueues the calls, so
+    the host's launch cost is not in the number; warm-up first."""
+    import torch
+
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clocks
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def check_close(name, got, want, tol, rtol=None) -> float:
@@ -626,6 +651,125 @@ def phase_attention(record):
         "flash_attention_fwd", "cuda",
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:79", timings)
+
+
+def attention_bwd_inputs(shape, dtype, seed):
+    """noncausal_inputs' q, k, v (any sq, sk), the kernel forward's out and
+    lse on them, and a dout, all in the model's layout."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    shape, causal, window = shape[:6], shape[6], shape[7]
+    q, k, v = noncausal_inputs(shape, dtype, seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dout = torch.randn(out.transpose(1, 2).shape, generator=g,
+                       device="cuda").to(dtype).transpose(1, 2)
+    return q, k, v, out, lse, dout
+
+
+def phase_attention_bwd(record):
+    """K1b (``flash_attention_bwd``) against ``flash_attention_bwd_plain``
+    in bf16, fed the forward kernel's out and lse: every ATTN_SHAPES entry
+    (causal, windows, each head dim, GQA) and NONCAUSAL_SHAPES, a second
+    launch bitwise, one count a call; float32 on the plain route, counting
+    nothing; then at each main path's bf16 shape its time beside the plain
+    backward's, the backward of one SDPA call and its bound (the five
+    products of the unmasked pairs, 2.5 x K1's FLOPs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    print("K1b flash_attention_bwd (CUDA, bf16) vs the plain backward:")
+    cases = ([(b, s, s, hq, hkv, hd, True, w)
+              for b, s, hq, hkv, hd, w in ATTN_SHAPES]
+             + [shape + (False, 0) for shape in NONCAUSAL_SHAPES])
+    errs = {}
+    for case in cases:
+        b, sq, sk, hq, hkv, hd, causal, window = case
+        q, k, v, out, lse, dout = attention_bwd_inputs(
+            case, torch.bfloat16, seed=hash(case) % 2**31)
+        ops.reset_launch_counts()
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                     window=window, dq_scale=0.5)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                            causal=causal, window=window,
+                                            dq_scale=0.5)
+        tag = (f"b{b} sq{sq} sk{sk} hq{hq} hkv{hkv} hd{hd} "
+               f"{'causal' if causal else 'non-causal'} w{window}")
+        errs[case] = max(check_close(f"{tag} {name}", a, w, TOL["bfloat16"])
+                         for name, a, w in zip(("dq", "dk", "dv"), got,
+                                               want))
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                       causal=causal, window=window,
+                                       dq_scale=0.5)
+        same_bits(f"{tag} second launch", got, again)
+        if ops.launch_counts()["flash_attention_bwd"] != 2:
+            raise AssertionError(f"{tag}: counted "
+                                 f"{ops.launch_counts()}, not 2 calls")
+        del got, want, again, q, k, v, out, lse, dout
+    q, k, v, out, lse, dout = attention_bwd_inputs(
+        cases[0], torch.float32, seed=1)
+    ops.reset_launch_counts()
+    same_bits("float32: the plain backward itself",
+              fa.flash_attention_bwd(q, k, v, out, lse, dout),
+              fa.flash_attention_bwd_plain(q, k, v, out, lse, dout))
+    if ops.launch_counts()["flash_attention_bwd"]:
+        raise AssertionError("a float32 backward counted a kernel call")
+    del q, k, v, out, lse, dout
+    timings = []
+    for path, shapes in PATH_SHAPES.items():
+        for entry in shapes["attn"]:
+            if entry[6:] and entry[6] != "bfloat16":
+                continue
+            b, sq, hq, hkv, hd, window = entry[:6]
+            case = (b, sq, sq, hq, hkv, hd, True, window)
+            sets = [attention_bwd_inputs(case, torch.bfloat16, seed=s)
+                    for s in range(4)]
+            ms = time_ms(lambda q, k, v, o, lse, do: fa.flash_attention_bwd(
+                q, k, v, o, lse, do, window=window), sets)
+            plain_ms = time_ms(
+                lambda q, k, v, o, lse, do: fa.flash_attention_bwd_plain(
+                    q, k, v, o, lse, do, window=window), sets, iters=2)
+            # one SDPA call's backward on the same function, from a graph
+            # kept for it: causal, or a boolean mask for the window
+            pos = torch.arange(sq, device="cuda")
+            mask = None if window == 0 else (
+                (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None]
+                                               < window))
+            lib = []
+            for q, k, v, _, _, do in sets:
+                leaves = [t.contiguous().requires_grad_() for t in (q, k, v)]
+                o = F.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask, is_causal=mask is None,
+                    scale=1.0, enable_gqa=hq != hkv)
+                lib.append((o, leaves, do.contiguous()))
+            lib_ms = time_events_ms(lambda o, leaves, do: torch.autograd.grad(
+                o, leaves, do, retain_graph=True), lib)
+            pairs = sum(min(i + 1, window or sq) for i in range(sq))
+            flops = 10 * b * hq * pairs * hd
+            nbytes = (4 * b * sq * hq * hd + 4 * b * sq * hkv * hd) * 2 \
+                + b * hq * sq * 4
+            bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+            print(f"  {path} shape {entry[:6]} bfloat16: kernel {ms:.4f} ms"
+                  f"  plain {plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} "
+                  f"ms  bound {bound_ms:.4f} ms ({bound_by}: {flops:.4g} "
+                  f"FLOP / 989 TFLOP/s, {nbytes:.4g} B / 3.35 TB/s)")
+            timings.append({"path": path, "shape": list(entry[:6]),
+                            "dtype": "bfloat16", "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": lib_ms,
+                            "max_abs_err": errs.get(case)})
+            del sets, lib
+    record["flash_attention_bwd"] = kernel_entry(
+        "flash_attention_bwd", "cuda",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "none (the reference's XLA VJP, repro/models/layers.py "
+        "_blocked_attention_bwd)", timings)
 
 
 def phase_rmsnorm(record):
@@ -3762,6 +3906,9 @@ def main(argv=None) -> int:
         n = check_no_spills(_build.BUILD_LOG["flash_attention"][1],
                             "flash_fwd_kernelILi256E")
         print(f"K1 head_dim 256: {n} instantiations, no ptxas spills")
+        n = check_no_spills(_build.BUILD_LOG["flash_attention"][1],
+                            "flash_bwd")
+        print(f"K1b: {n} kernel instantiations, no ptxas spills")
 
     seconds = {"build": time.perf_counter() - t0}
 
@@ -3775,7 +3922,8 @@ def main(argv=None) -> int:
         return out
 
     record: dict = {}
-    for fn in (phase_attention, phase_rmsnorm, phase_ssd, phase_decode):
+    for fn in (phase_attention, phase_attention_bwd, phase_rmsnorm, phase_ssd,
+               phase_decode):
         timed(fn, record)
     if "--kernels-only" in argv:
         return 0
@@ -3797,7 +3945,7 @@ def main(argv=None) -> int:
     runs.update(timed(phase_examples))
     kernels = []
     for name, rec in record.items():
-        by_path = {f"{arch} {run}": c[name] for (arch, run), (_, c, _)
+        by_path = {f"{arch} {run}": c.get(name, 0) for (arch, run), (_, c, _)
                    in runs.items()}
         kernels.append({**rec, "launches": sum(by_path.values()),
                         "launches_by_path": by_path})

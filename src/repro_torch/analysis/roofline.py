@@ -24,8 +24,9 @@ no storage, under one counting dispatch mode:
 The kernel wrappers route a meta tensor to their plain versions
 (``kernels/_build.PLAIN_DEVICES``), which carry the shapes.  By default a
 wrapper's call counts as its kernel's own work (:data:`KERNEL_WORK`: K1
-scores only the unmasked pairs, and each kernel reads its inputs and
-writes its outputs once), since the card runs the kernel there; with
+and its backward score only the unmasked pairs, and each kernel reads its
+inputs and writes its outputs once), since the card runs the kernel there
+(K1's backward there runs only in bf16, the plain route in float32); with
 ``kernels=False`` it counts as the aten ops of the plain version, the
 composition the reference counts (its default backend is ``"xla"``, not
 the Pallas kernel), and the tests hold those counts against the
@@ -198,6 +199,21 @@ def _k1_work(q, k, v, *, causal=True, window=0):
     return flops, nbytes
 
 
+def _k1b_work(q, k, v, out, lse, dout, *, causal=True, window=0,
+              dq_scale=1.0):
+    """K1's backward: five products over the unmasked pairs (the dq pass's
+    recompute of S and dP not counted); q, k, v, out, dout and lse read,
+    dq, dk and dv written once.  None in float32, which the card runs as
+    the plain backward."""
+    if q.dtype != torch.bfloat16:
+        return None
+    b, hq, sq, hd = q.shape
+    flops = 10 * b * hq * _pairs(sq, k.shape[2], causal, window) * hd
+    nbytes = (2 * _stored(q) + 2 * _stored(k) + 2 * _stored(v)
+              + _stored(out) + _stored(dout) + _stored(lse))
+    return flops, nbytes
+
+
 def _k2_work(x, scale, eps=1e-5):
     return 4 * x.numel(), 2 * _stored(x) + _stored(scale)
 
@@ -228,6 +244,7 @@ def _k4_work(x, dt, A, B, C, D, *, chunk):
 #: each input read once and each output written once, as ``chip_smoke.py``
 #: bounds each kernel
 KERNEL_WORK = {("flash_attention", "flash_attention_fwd"): _k1_work,
+               ("flash_attention", "flash_attention_bwd"): _k1b_work,
                ("rmsnorm", "rmsnorm"): _k2_work,
                ("flash_decode", "flash_decode"): _k3_work,
                ("ssd_scan", "ssd_scan"): _k4_work}
@@ -236,13 +253,17 @@ KERNEL_WORK = {("flash_attention", "flash_attention_fwd"): _k1_work,
 @contextlib.contextmanager
 def _as_kernels(counter: CostCounter):
     """Count each kernel wrapper's call as its kernel's work (its plain
-    route on meta tensors runs uncounted, for the shapes).  The wrappers
-    are replaced on their modules while the block runs."""
+    route on meta tensors runs uncounted, for the shapes); a call whose
+    work is None runs its plain route on the card too, and counts as that.
+    The wrappers are replaced on their modules while the block runs."""
     saved = []
 
     def counted(name, fn, work):
         def call(*args, **kwargs):
-            flops, nbytes = work(*args, **kwargs)
+            cost = work(*args, **kwargs)
+            if cost is None:
+                return fn(*args, **kwargs)
+            flops, nbytes = cost
             counter.paused = True
             try:
                 out = fn(*args, **kwargs)

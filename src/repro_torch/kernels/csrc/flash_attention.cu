@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a): kernel K1 of the port.
+// Flash-attention forward for Hopper (sm_90a): kernel K1 of the port (its
+// bf16 backward, K1b, is namespace bwd below).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention_fwd / _kernel).  Same function: causal or sliding-window
@@ -665,6 +666,720 @@ bool aligned16(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// bfloat16: the backward (K1b), dq then dk/dv
+// ---------------------------------------------------------------------------
+// Gradient of the tensor-core forward w.r.t. q, k and v, from its saved out
+// and lse (FlashAttention-2's backward, without atomics).  Replaces no TPU
+// kernel: the reference backs its Pallas forward with the XLA VJP
+// `_blocked_attention_bwd`, which the port's `flash_attention_bwd_plain`
+// copies in float32 products.  The products here are the same ones on the
+// tensor cores: every operand is bf16 there too (q, k, v, dout, bf16(P),
+// bf16(dS)), so bf16 mma.sync with float32 accumulation keeps its rounding
+// points; only the order of the float32 sums differs.
+//
+// Bound on this card: operations (five products of 2*hd FLOP per unmasked
+// pair, on O(b*h*s*hd) bytes).  Two launches, three under GQA, each output
+// element owned by one thread and summed in a fixed order, so two calls
+// give the same bits:
+//  - flash_bwd_dq_kernel: one block of 4 warps per (64 query rows, query
+//    head, batch row), heaviest causal rows first.  It first writes
+//    delta = rowsum(dout * out) in float32 for its rows (the dk/dv pass
+//    reads it), then walks the unmasked 64-key tiles through a 2-stage
+//    cp.async ring of K and V: S = Q K^T, P = exp(S - lse), dP = dO V^T,
+//    dS = P (dP - delta), dQ += bf16(dS) K; dQ * dq_scale is rounded once.
+//  - flash_bwd_dkdv_kernel: one block of 4 warps per (64 keys, query head,
+//    batch row), the lowest keys (the most causal queries) first; each warp
+//    owns 16 keys.  It walks the query tiles that hold an unmasked pair
+//    with its keys, Q, dO, lse and delta streaming through a 2-stage ring:
+//    S^T = K Q^T, P^T, dV += bf16(P^T) dO, dP^T = V dO^T, dS^T, dK +=
+//    bf16(dS^T) Q.  dK and dV stay float32 in registers and are rounded
+//    once; under GQA (group > 1) they leave as float32 partials of the one
+//    query head, so that the grid has a block per query head and not per
+//    kv head (qwen2-vl's 12/2 would fill only 128 of the card's 132 SMs
+//    with 4 warps each), and
+//  - flash_bwd_group_sum_kernel adds each kv head's partials over its
+//    group's query heads in order and rounds once.
+// Head dim 256 splits dQ, dK and dV's columns over two groups of 4 warps,
+// as the forward splits O: each group computes S and dP whole.  Tiles are
+// skipped or masked by the forward's predicates.
+namespace bwd {
+
+using tc::bf16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ldmatrix_x4;
+using tc::ldmatrix_x4_trans;
+using tc::load_tile;
+using tc::mma_bf16;
+using tc::pack_bf16;
+using tc::smem_addr;
+
+constexpr int WARPS = 4;
+constexpr int PAD = tc::PAD;
+constexpr float LOG2E = tc::LOG2E;
+// keys per tile of the dq pass and per block of the dk/dv pass
+constexpr int BLOCK_N = 64;
+// query rows per block of the dq pass (16 a warp)
+constexpr int DQ_BLOCK_M = 64;
+
+// Query rows per tile of the dk/dv pass: 64 while dK, dV, S^T and dP^T fit
+// the registers beside each other, 32 beyond.
+template <int HD>
+__host__ __device__ constexpr int kv_block_m() {
+  return HD <= 64 ? 64 : 32;
+}
+
+template <int HD>
+__host__ __device__ constexpr int col_groups() {
+  return HD <= 128 ? 1 : 2;
+}
+
+template <int HD>
+__host__ __device__ constexpr int threads() {
+  return 32 * WARPS * col_groups<HD>();
+}
+
+// The fixed operand of each pass (Q and dO in the dq pass, K and V in the
+// dk/dv pass) held as fragments in registers, or loaded from shared memory
+// at every k-step.
+template <int HD>
+__host__ __device__ constexpr bool frags_in_regs() {
+  return HD <= 64;
+}
+
+template <int HD>
+constexpr size_t dq_smem_bytes() {
+  // Q, dO [DQ_BLOCK_M][LD]; a 2-stage ring of K, V [BLOCK_N][LD]; delta
+  return sizeof(bf16) * (size_t)(2 * DQ_BLOCK_M + 4 * BLOCK_N) * (HD + PAD) +
+         sizeof(float) * DQ_BLOCK_M;
+}
+
+template <int HD>
+constexpr size_t dkdv_smem_bytes() {
+  // K, V [BLOCK_N][LD]; a 2-stage ring of Q, dO [BM][LD], lse and delta [BM]
+  constexpr int BM = kv_block_m<HD>();
+  return sizeof(bf16) * (size_t)(2 * BLOCK_N + 4 * BM) * (HD + PAD) +
+         sizeof(float) * 4 * BM;
+}
+
+struct BwdStrides {
+  long long q_b, q_h, q_s;
+  long long k_b, k_h, k_s;
+  long long v_b, v_h, v_s;
+  long long o_b, o_h, o_s;
+  long long do_b, do_h, do_s;
+  long long dq_b, dq_h, dq_s;
+  long long dk_b, dk_h, dk_s;
+  long long dv_b, dv_h, dv_s;
+};
+
+// 4-byte global -> shared copy (zeros past the edge).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ bool valid_pair(int row, int key, int sq, int sk,
+                                           int causal, int window) {
+  return row < sq && key < sk && (!causal || key <= row) &&
+         (window <= 0 || row - key < window);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(threads<HD>())
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ o,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    bf16* __restrict__ dq, int sq, int sk, int hq, int group,
+                    BwdStrides st, int causal, int window, float dq_scale) {
+  constexpr int BM = DQ_BLOCK_M;
+  constexpr int THREADS = threads<HD>();
+  constexpr int LD = HD + PAD;
+  constexpr int KS = HD / 16;       // k16 steps of Q K^T and dO V^T
+  constexpr int NT = BLOCK_N / 8;   // n8 tiles of S and dP
+  constexpr int DT = HD / 8 / col_groups<HD>();  // n8 tiles of this dQ part
+  constexpr int CH = HD / 8;        // 16-byte chunks per row
+  constexpr bool REG = frags_in_regs<HD>();
+  static_assert(THREADS == tc::threads<HD>(), "load_tile's thread count");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]; then dQ
+  bf16* sDO = sQ + BM * LD;                      // [BM][LD]
+  bf16* sK = sDO + BM * LD;                      // [2][BLOCK_N][LD]
+  bf16* sV = sK + 2 * BLOCK_N * LD;              // [2][BLOCK_N][LD]
+  float* sDelta = reinterpret_cast<float*>(sV + 2 * BLOCK_N * LD);  // [BM]
+
+  const int tid = threadIdx.x;
+  const int warp = (tid >> 5) % WARPS;
+  const int col0 = (tid >> 5) / WARPS * DT * 8;
+  const int lane = tid & 31;
+  const int h = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int m0 = (gridDim.z - 1 - blockIdx.z) * BM;  // heaviest tile first
+  const int hk = h / group;
+  const long long row0 = ((long long)bi * hq + h) * sq;  // lse, delta
+
+  const bf16* qb = q + bi * st.q_b + h * st.q_h;
+  const bf16* kb = k + bi * st.k_b + hk * st.k_h;
+  const bf16* vb = v + bi * st.v_b + hk * st.v_h;
+  const bf16* ob = o + bi * st.o_b + h * st.o_h;
+  const bf16* dob = dout + bi * st.do_b + h * st.do_h;
+
+  // Key tiles that can hold an unmasked entry for some row of this tile.
+  const int n_end = causal ? min(sk, m0 + BM) : sk;
+  int n_begin = 0;
+  if (window > 0) {
+    const int first = m0 - window + 1;
+    if (first > 0) n_begin = (first / BLOCK_N) * BLOCK_N;
+  }
+  const int n_tiles =
+      n_end > n_begin ? (n_end - n_begin + BLOCK_N - 1) / BLOCK_N : 0;
+
+  load_tile<HD, BM>(sQ, qb, st.q_s, m0, sq, tid);
+  load_tile<HD, BM>(sDO, dob, st.do_s, m0, sq, tid);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_tile<HD, BLOCK_N>(sK, kb, st.k_s, n_begin, sk, tid);
+    load_tile<HD, BLOCK_N>(sV, vb, st.v_s, n_begin, sk, tid);
+  }
+  cp_async_commit();
+
+  // delta = rowsum(dout * out) in float32, a row per warp at a time (lane
+  // c takes the row's 16-byte chunk c), while the tiles land.
+  for (int r = tid >> 5; r < BM; r += THREADS / 32) {
+    const int row = m0 + r;
+    float acc = 0.f;
+    if (row < sq && lane < CH) {
+      const uint4 a =
+          *reinterpret_cast<const uint4*>(ob + row * st.o_s + lane * 8);
+      const uint4 b =
+          *reinterpret_cast<const uint4*>(dob + row * st.do_s + lane * 8);
+      const bf16* pa = reinterpret_cast<const bf16*>(&a);
+      const bf16* pb = reinterpret_cast<const bf16*>(&b);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc = fmaf(__bfloat162float(pa[e]), __bfloat162float(pb[e]), acc);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      sDelta[r] = acc;
+      if (row < sq) delta[row0 + row] = acc;
+    }
+  }
+  cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+
+  const int wr0 = m0 + warp * 16;
+  const int wr1 = wr0 + 15;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8;
+  const int b_col = ((lane >> 3) & 1) * 8;
+
+  // This thread's two rows (g and g + 8): lse in log2 units and delta.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = warp * 16 + g + rr * 8;
+    lse2[rr] = m0 + r < sq ? lse[row0 + m0 + r] * LOG2E : 0.f;
+    dl[rr] = sDelta[r];
+  }
+
+  const bf16* q_lane = sQ + (warp * 16 + a_row) * LD + a_col;
+  const bf16* do_lane = sDO + (warp * 16 + a_row) * LD + a_col;
+  uint32_t qf[REG ? KS : 1][4], df[REG ? KS : 1][4];
+  if constexpr (REG) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      ldmatrix_x4(qf[ks], smem_addr(q_lane + ks * 16));
+      ldmatrix_x4(df[ks], smem_addr(do_lane + ks * 16));
+    }
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int n0 = n_begin + it * BLOCK_N;
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {
+      load_tile<HD, BLOCK_N>(sK + (stage ^ 1) * BLOCK_N * LD, kb, st.k_s,
+                             n0 + BLOCK_N, sk, tid);
+      load_tile<HD, BLOCK_N>(sV + (stage ^ 1) * BLOCK_N * LD, vb, st.v_s,
+                             n0 + BLOCK_N, sk, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bf16* tK = sK + stage * BLOCK_N * LD;
+    const bf16* tV = sV + stage * BLOCK_N * LD;
+    const bool idle = (causal && n0 > wr1) ||
+                      (window > 0 && n0 + BLOCK_N - 1 <= wr0 - window);
+    if (!idle) {
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[4], da[4];
+        if constexpr (REG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            qa[e] = qf[ks][e];
+            da[e] = df[ks][e];
+          }
+        } else {
+          ldmatrix_x4(qa, smem_addr(q_lane + ks * 16));
+          ldmatrix_x4(da, smem_addr(do_lane + ks * 16));
+        }
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4(b, smem_addr(tK + (np * 16 + b_row) * LD + ks * 16 +
+                                   b_col));
+          mma_bf16(s[2 * np], qa, b[0], b[1]);
+          mma_bf16(s[2 * np + 1], qa, b[2], b[3]);
+          ldmatrix_x4(b, smem_addr(tV + (np * 16 + b_row) * LD + ks * 16 +
+                                   b_col));
+          mma_bf16(dp[2 * np], da, b[0], b[1]);
+          mma_bf16(dp[2 * np + 1], da, b[2], b[3]);
+        }
+      }
+
+      const bool edge = n0 + BLOCK_N > sk ||
+                        (causal && n0 + BLOCK_N - 1 > wr0) ||
+                        (window > 0 && wr1 - n0 >= window);
+      // dS = P (dP - delta), then rounded to bf16 as the A operand of
+      // dQ += dS K (the accumulator layout of two n8 tiles is the A layout
+      // of one k16 step).
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[nt][e], LOG2E, -lse2[e >> 1]));
+          if (edge && !valid_pair(wr0 + g + (e >> 1) * 8,
+                                  n0 + nt * 8 + tig * 2 + (e & 1), sq, sk,
+                                  causal, window))
+            p = 0.f;
+          s[nt][e] = p * (dp[nt][e] - dl[e >> 1]);
+        }
+#pragma unroll
+      for (int t = 0; t < BLOCK_N / 16; ++t) {
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
+        a[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
+        a[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
+        a[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
+#pragma unroll
+        for (int dp2 = 0; dp2 < DT / 2; ++dp2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, smem_addr(tK + (t * 16 + a_row) * LD + col0 +
+                                         dp2 * 16 + a_col));
+          mma_bf16(acc[2 * dp2], a, b[0], b[1]);
+          mma_bf16(acc[2 * dp2 + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with sQ (and the ring): reuse it
+
+  bf16* sO = sQ;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = warp * 16 + g + rr * 8;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(sO + r * LD + col0 + dt * 8 + tig * 2) =
+          pack_bf16(acc[dt][2 * rr] * dq_scale,
+                    acc[dt][2 * rr + 1] * dq_scale);
+  }
+  __syncthreads();
+  bf16* dqb = dq + bi * st.dq_b + h * st.dq_h;
+#pragma unroll
+  for (int i = 0; i < BM * CH / THREADS; ++i) {
+    const int idx = tid + i * THREADS;
+    const int r = idx / CH;
+    const int c = idx - r * CH;
+    if (m0 + r < sq)
+      *reinterpret_cast<uint4*>(dqb + (m0 + r) * st.dq_s + c * 8) =
+          *reinterpret_cast<const uint4*>(sO + r * LD + c * 8);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(threads<HD>())
+flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, float* __restrict__ dk_part,
+                      float* __restrict__ dv_part, int sq, int sk, int hq,
+                      int group, BwdStrides st, int causal, int window) {
+  constexpr int BM = kv_block_m<HD>();  // query rows per tile
+  constexpr int THREADS = threads<HD>();
+  constexpr int LD = HD + PAD;
+  constexpr int KS = HD / 16;       // k16 steps of K Q^T and V dO^T
+  constexpr int MT = BM / 8;        // n8 tiles of S^T and dP^T
+  constexpr int DT = HD / 8 / col_groups<HD>();  // n8 tiles of this dK part
+  constexpr int CH = HD / 8;
+  constexpr bool REG = frags_in_regs<HD>();
+  static_assert(THREADS == tc::threads<HD>(), "load_tile's thread count");
+  static_assert(2 * BM <= THREADS, "one lse or delta float per thread");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [BLOCK_N][LD]; then dK
+  bf16* sV = sK + BLOCK_N * LD;                  // [BLOCK_N][LD]; then dV
+  bf16* sQ = sV + BLOCK_N * LD;                  // [2][BM][LD]
+  bf16* sDO = sQ + 2 * BM * LD;                  // [2][BM][LD]
+  float* sL = reinterpret_cast<float*>(sDO + 2 * BM * LD);  // [2][BM]
+  float* sD = sL + 2 * BM;                                  // [2][BM]
+
+  const int tid = threadIdx.x;
+  const int warp = (tid >> 5) % WARPS;
+  const int col0 = (tid >> 5) / WARPS * DT * 8;
+  const int lane = tid & 31;
+  const int h = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int n0 = blockIdx.z * BLOCK_N;  // the lowest keys, most queries, first
+  const int hk = h / group;
+
+  const bf16* kb = k + bi * st.k_b + hk * st.k_h;
+  const bf16* vb = v + bi * st.v_b + hk * st.v_h;
+
+  // Query tiles that can hold an unmasked pair with this block's keys.
+  const int m_begin = causal ? (n0 / BM) * BM : 0;
+  const int m_end = window > 0 ? min(sq, n0 + BLOCK_N - 1 + window) : sq;
+  const int m_tiles = m_end > m_begin ? (m_end - m_begin + BM - 1) / BM : 0;
+  const bf16* qb = q + bi * st.q_b + h * st.q_h;
+  const bf16* dob = dout + bi * st.do_b + h * st.do_h;
+  const long long row0 = ((long long)bi * hq + h) * sq;  // lse, delta
+
+  // Q, dO, lse and delta of query tile `it` into ring stage `stage`.
+  auto load_q = [&](int it, int stage) {
+    const int m0 = m_begin + it * BM;
+    load_tile<HD, BM>(sQ + stage * BM * LD, qb, st.q_s, m0, sq, tid);
+    load_tile<HD, BM>(sDO + stage * BM * LD, dob, st.do_s, m0, sq, tid);
+    if (tid < 2 * BM) {
+      const int r = tid % BM;
+      const bool ok = m0 + r < sq;
+      const long long at = row0 + (ok ? m0 + r : 0);
+      float* dst = (tid < BM ? sL : sD) + stage * BM + r;
+      cp_async4(smem_addr(dst), (tid < BM ? lse : delta) + at, ok);
+    }
+  };
+
+  load_tile<HD, BLOCK_N>(sK, kb, st.k_s, n0, sk, tid);
+  load_tile<HD, BLOCK_N>(sV, vb, st.v_s, n0, sk, tid);
+  if (m_tiles > 0) load_q(0, 0);
+  cp_async_commit();
+
+  const int kw0 = n0 + warp * 16;  // this warp's keys: kw0 .. kw0 + 15
+  const int kw1 = kw0 + 15;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8;
+  const int b_col = ((lane >> 3) & 1) * 8;
+
+  const bf16* k_lane = sK + (warp * 16 + a_row) * LD + a_col;
+  const bf16* v_lane = sV + (warp * 16 + a_row) * LD + a_col;
+  uint32_t kf[REG ? KS : 1][4], vf[REG ? KS : 1][4];
+
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+
+  for (int it = 0; it < m_tiles; ++it) {
+    const int m0 = m_begin + it * BM;
+    const int stage = it & 1;
+    if (it + 1 < m_tiles) load_q(it + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and K, V) has landed
+    __syncthreads();
+    if constexpr (REG) {
+      if (it == 0) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          ldmatrix_x4(kf[ks], smem_addr(k_lane + ks * 16));
+          ldmatrix_x4(vf[ks], smem_addr(v_lane + ks * 16));
+        }
+      }
+    }
+
+    const bf16* tQ = sQ + stage * BM * LD;
+    const bf16* tDO = sDO + stage * BM * LD;
+    const float* tL = sL + stage * BM;
+    const float* tD = sD + stage * BM;
+    // A tile before every key of the warp (causal), or past every key's
+    // window, holds nothing for it.
+    const bool idle = (causal && m0 + BM - 1 < kw0) ||
+                      (window > 0 && m0 - kw1 >= window);
+    if (!idle) {
+      float s[MT][4], dp[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][e] = dp[mt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ka[4], va[4];
+        if constexpr (REG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ka[e] = kf[ks][e];
+            va[e] = vf[ks][e];
+          }
+        } else {
+          ldmatrix_x4(ka, smem_addr(k_lane + ks * 16));
+          ldmatrix_x4(va, smem_addr(v_lane + ks * 16));
+        }
+#pragma unroll
+        for (int np = 0; np < MT / 2; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4(b, smem_addr(tQ + (np * 16 + b_row) * LD + ks * 16 +
+                                   b_col));
+          mma_bf16(s[2 * np], ka, b[0], b[1]);
+          mma_bf16(s[2 * np + 1], ka, b[2], b[3]);
+          ldmatrix_x4(b, smem_addr(tDO + (np * 16 + b_row) * LD + ks * 16 +
+                                   b_col));
+          mma_bf16(dp[2 * np], va, b[0], b[1]);
+          mma_bf16(dp[2 * np + 1], va, b[2], b[3]);
+        }
+      }
+
+      // Masks only where the tile crosses the ragged ends, the diagonal or
+      // the window's edge for some key of this warp.
+      const bool edge = kw1 >= sk || m0 + BM > sq ||
+                        (causal && m0 < kw1) ||
+                        (window > 0 && m0 + BM - 1 - kw0 >= window);
+      // Rows of S^T are keys, columns queries: P^T and dS^T, each rounded
+      // to bf16 as an A operand whose k16 steps run over queries.
+      uint32_t pa[BM / 16][4], dsa[BM / 16][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = mt * 8 + tig * 2 + (e & 1);
+          float p = exp2f(fmaf(s[mt][e], LOG2E, -tL[c] * LOG2E));
+          if (edge && !valid_pair(m0 + c, kw0 + g + (e >> 1) * 8, sq, sk,
+                                  causal, window))
+            p = 0.f;
+          s[mt][e] = p;
+          dp[mt][e] = p * (dp[mt][e] - tD[c]);
+        }
+#pragma unroll
+      for (int t = 0; t < BM / 16; ++t) {
+        pa[t][0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
+        pa[t][1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
+        pa[t][2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
+        pa[t][3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
+        dsa[t][0] = pack_bf16(dp[2 * t][0], dp[2 * t][1]);
+        dsa[t][1] = pack_bf16(dp[2 * t][2], dp[2 * t][3]);
+        dsa[t][2] = pack_bf16(dp[2 * t + 1][0], dp[2 * t + 1][1]);
+        dsa[t][3] = pack_bf16(dp[2 * t + 1][2], dp[2 * t + 1][3]);
+      }
+#pragma unroll
+      for (int t = 0; t < BM / 16; ++t) {
+#pragma unroll
+        for (int d2 = 0; d2 < DT / 2; ++d2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, smem_addr(tDO + (t * 16 + a_row) * LD + col0 +
+                                         d2 * 16 + a_col));
+          mma_bf16(dv_acc[2 * d2], pa[t], b[0], b[1]);
+          mma_bf16(dv_acc[2 * d2 + 1], pa[t], b[2], b[3]);
+          ldmatrix_x4_trans(b, smem_addr(tQ + (t * 16 + a_row) * LD + col0 +
+                                         d2 * 16 + a_col));
+          mma_bf16(dk_acc[2 * d2], dsa[t], b[0], b[1]);
+          mma_bf16(dk_acc[2 * d2 + 1], dsa[t], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration
+  }
+  cp_async_wait<0>();
+  if (group > 1) {  // float32 partials [b, hq, sk, HD] of this query head
+    const long long part0 = ((long long)bi * hq + h) * sk;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int key = kw0 + g + rr * 8;
+      if (key >= sk) continue;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const long long at = (part0 + key) * HD + col0 + dt * 8 + tig * 2;
+        *reinterpret_cast<float2*>(dk_part + at) =
+            make_float2(dk_acc[dt][2 * rr], dk_acc[dt][2 * rr + 1]);
+        *reinterpret_cast<float2*>(dv_part + at) =
+            make_float2(dv_acc[dt][2 * rr], dv_acc[dt][2 * rr + 1]);
+      }
+    }
+    return;
+  }
+  __syncthreads();  // every warp is done with sK and sV: reuse them
+
+  bf16* sdK = sK;
+  bf16* sdV = sV;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = warp * 16 + g + rr * 8;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const int c = col0 + dt * 8 + tig * 2;
+      *reinterpret_cast<uint32_t*>(sdK + r * LD + c) =
+          pack_bf16(dk_acc[dt][2 * rr], dk_acc[dt][2 * rr + 1]);
+      *reinterpret_cast<uint32_t*>(sdV + r * LD + c) =
+          pack_bf16(dv_acc[dt][2 * rr], dv_acc[dt][2 * rr + 1]);
+    }
+  }
+  __syncthreads();
+  bf16* dkb = dk + bi * st.dk_b + hk * st.dk_h;
+  bf16* dvb = dv + bi * st.dv_b + hk * st.dv_h;
+#pragma unroll
+  for (int i = 0; i < BLOCK_N * CH / THREADS; ++i) {
+    const int idx = tid + i * THREADS;
+    const int r = idx / CH;
+    const int c = idx - r * CH;
+    if (n0 + r < sk) {
+      *reinterpret_cast<uint4*>(dkb + (n0 + r) * st.dk_s + c * 8) =
+          *reinterpret_cast<const uint4*>(sdK + r * LD + c * 8);
+      *reinterpret_cast<uint4*>(dvb + (n0 + r) * st.dv_s + c * 8) =
+          *reinterpret_cast<const uint4*>(sdV + r * LD + c * 8);
+    }
+  }
+}
+
+constexpr int SUM_THREADS = 256;
+
+// dK and dV of each kv head: its group's float32 partials added in head
+// order, rounded once.  A thread per 8 columns of one key row.
+template <int HD>
+__global__ void __launch_bounds__(SUM_THREADS)
+flash_bwd_group_sum_kernel(const float* __restrict__ dk_part,
+                           const float* __restrict__ dv_part,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int b, int hkv, int sk, int group, BwdStrides st) {
+  constexpr int CH = HD / 8;
+  const long long i = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
+  if (i >= (long long)b * hkv * sk * CH) return;
+  const int c = i % CH;
+  const long long row = i / CH;  // (bi, hk, key)
+  const int key = row % sk;
+  const int hk = (row / sk) % hkv;
+  const int bi = row / ((long long)sk * hkv);
+  float sum_k[8], sum_v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) sum_k[e] = sum_v[e] = 0.f;
+  for (int j = 0; j < group; ++j) {
+    const long long at =
+        ((((long long)bi * hkv + hk) * group + j) * sk + key) * HD + c * 8;
+    const float4* part_k = reinterpret_cast<const float4*>(dk_part + at);
+    const float4* part_v = reinterpret_cast<const float4*>(dv_part + at);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float4 a = part_k[half];
+      const float4 w = part_v[half];
+      const float ka[4] = {a.x, a.y, a.z, a.w};
+      const float va[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sum_k[4 * half + e] += ka[e];
+        sum_v[4 * half + e] += va[e];
+      }
+    }
+  }
+  uint4 out_k, out_v;
+  uint32_t* pk = reinterpret_cast<uint32_t*>(&out_k);
+  uint32_t* pv = reinterpret_cast<uint32_t*>(&out_v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    pk[e] = pack_bf16(sum_k[2 * e], sum_k[2 * e + 1]);
+    pv[e] = pack_bf16(sum_v[2 * e], sum_v[2 * e + 1]);
+  }
+  *reinterpret_cast<uint4*>(dk + bi * st.dk_b + hk * st.dk_h +
+                            key * st.dk_s + c * 8) = out_k;
+  *reinterpret_cast<uint4*>(dv + bi * st.dv_b + hk * st.dv_h +
+                            key * st.dv_s + c * 8) = out_v;
+}
+
+// dk_part, dv_part: float32 [b, hq, sk, HD] scratch when hq > hkv, else
+// unused.
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv,
+                   float* dk_part, float* dv_part, int b, int hq, int hkv,
+                   int sq, int sk, const BwdStrides& st, int causal,
+                   int window, float dq_scale, cudaStream_t stream) {
+  constexpr size_t smem_dq = dq_smem_bytes<HD>();
+  constexpr size_t smem_kv = dkdv_smem_bytes<HD>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_dq);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_kv);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const bf16* q_ = static_cast<const bf16*>(q);
+  const bf16* k_ = static_cast<const bf16*>(k);
+  const bf16* v_ = static_cast<const bf16*>(v);
+  const bf16* do_ = static_cast<const bf16*>(dout);
+  dim3 grid_dq(hq, b, (sq + DQ_BLOCK_M - 1) / DQ_BLOCK_M);
+  flash_bwd_dq_kernel<HD><<<grid_dq, threads<HD>(), smem_dq, stream>>>(
+      q_, k_, v_, static_cast<const bf16*>(o), do_, lse, delta,
+      static_cast<bf16*>(dq), sq, sk, hq, hq / hkv, st, causal, window,
+      dq_scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int group = hq / hkv;
+  bf16* dk_ = static_cast<bf16*>(dk);
+  bf16* dv_ = static_cast<bf16*>(dv);
+  dim3 grid_kv(hq, b, (sk + BLOCK_N - 1) / BLOCK_N);
+  flash_bwd_dkdv_kernel<HD><<<grid_kv, threads<HD>(), smem_kv, stream>>>(
+      q_, k_, v_, do_, lse, delta, dk_, dv_, dk_part, dv_part, sq, sk, hq,
+      group, st, causal, window);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || group == 1) return e;
+  const long long n = (long long)b * hkv * sk * (HD / 8);
+  flash_bwd_group_sum_kernel<HD>
+      <<<(unsigned)((n + SUM_THREADS - 1) / SUM_THREADS), SUM_THREADS, 0,
+         stream>>>(dk_part, dv_part, dk_, dv_, b, hkv, sk, group, st);
+  return cudaGetLastError();
+}
+
+// 16-byte copies need 16-byte aligned rows: the eight tensors' pointers,
+// and their 24 batch, head and seq strides multiples of 8 elements.
+bool aligned16(const void* const* ptrs, const long long* strides) {
+  uintptr_t any = 0;
+  for (int i = 0; i < 8; ++i) any |= (uintptr_t)ptrs[i];
+  for (int i = 0; i < 24; ++i)
+    if (strides[i] % 8) return false;
+  return any % 16 == 0;
+}
+
+}  // namespace bwd
+
 // The float32 scalar kernel or the bf16 tensor-core kernel for one hd.
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
@@ -731,6 +1446,61 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The backward of the bfloat16 kernel (launches: dq and delta; dk and dv;
+// under GQA the sum of their partials).  strides: 24 element strides,
+// (batch, head, seq) for q, k, v, o, dout, dq, dk and dv in that order; lse
+// and delta are contiguous float32 [b, hq, sq]; dk_part and dv_part
+// contiguous float32 [b, hq, sk, hd] scratch when hq > hkv (else unused);
+// the head_dim axis must be contiguous, every pointer 16-byte aligned and
+// every stride a multiple of 8.  Returns the cudaError_t of the launches.
+int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
+                              const void* o, const void* dout,
+                              const float* lse, float* delta, void* dq,
+                              void* dk, void* dv, float* dk_part,
+                              float* dv_part, int b, int hq, int hkv,
+                              int sq, int sk, int hd,
+                              const long long* strides, int causal,
+                              int window, float dq_scale, int device,
+                              void* stream) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return e;
+  if (cur != device) {
+    e = cudaSetDevice(device);
+    if (e != cudaSuccess) return e;
+  }
+  if (hkv <= 0 || hq % hkv != 0) return cudaErrorInvalidValue;
+  if (hq > hkv && (dk_part == nullptr || dv_part == nullptr))
+    return cudaErrorInvalidValue;
+  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+  if (!bwd::aligned16(ptrs, strides)) return cudaErrorMisalignedAddress;
+  const long long* s = strides;
+  bwd::BwdStrides st{s[0],  s[1],  s[2],  s[3],  s[4],  s[5],
+                     s[6],  s[7],  s[8],  s[9],  s[10], s[11],
+                     s[12], s[13], s[14], s[15], s[16], s[17],
+                     s[18], s[19], s[20], s[21], s[22], s[23]};
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+#define REPRO_BWD(HD)                                                       \
+  return bwd::launch<HD>(q, k, v, o, dout, lse, delta, dq, dk, dv,        \
+                         dk_part, dv_part, b, hq, hkv, sq, sk, st, causal,  \
+                         window, dq_scale, cs)
+  switch (hd) {
+    case 32:
+      REPRO_BWD(32);
+    case 64:
+      REPRO_BWD(64);
+    case 96:
+      REPRO_BWD(96);
+    case 128:
+      REPRO_BWD(128);
+    case 256:
+      REPRO_BWD(256);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_BWD
 }
 
 const char* repro_cuda_error_string(int err) {

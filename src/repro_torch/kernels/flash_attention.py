@@ -8,6 +8,12 @@ positions ``arange(sq)``, causal and/or sliding-window masking, query head
 ``h`` reads kv head ``h // (hq // hkv)``.  It also returns the row
 log-sum-exp ``lse`` (float32 ``[b, hq, sq]``) for the backward.
 
+Also K1's backward (K1b), ``flash_attention_bwd``: launches of the same
+source, dq (with delta = rowsum(dout * out)), then dk and dv a query head
+at a time (under GQA as float32 partials, then their sum over the group),
+bf16 products with float32 sums on the tensor cores, rounded where
+``flash_attention_bwd_plain`` rounds; float32 keeps the plain backward.
+
 Bound on the H100: operations.  Causal training attention does
 ``2*b*hq*sq^2*hd`` FLOP on ``O(b*h*s*hd)`` bytes, so the floor is that
 count over the bf16 tensor-core rate, 989 TFLOP/s.  For bfloat16 (the main
@@ -33,6 +39,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF
 
 COUNTER = _build.LaunchCounter("flash_attention_fwd")
+#: backward calls that launched the bf16 kernels (one per call)
+COUNTER_BWD = _build.LaunchCounter("flash_attention_bwd")
 HEAD_DIMS = (32, 64, 96, 128, 256)
 #: the float32 scalar kernel also takes the reduced configs' head_dim 16
 HEAD_DIMS_F32 = (16,) + HEAD_DIMS
@@ -99,7 +107,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention_fwd: head_dim must be contiguous")
     if q.dtype == torch.bfloat16:
-        _check_aligned16(q, k, v)
+        _check_aligned16("flash_attention_fwd", q, k, v)
     buf = torch.empty((b, sq, hq, hd), dtype=q.dtype, device=q.device)
     out = buf.transpose(1, 2)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -119,14 +127,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     return out, lse
 
 
-def _check_aligned16(*tensors):
-    """The bf16 kernel's 16-byte copies: every pointer 16-byte aligned, the
-    batch, head and seq strides multiples of 8 elements (the output buffer
-    the wrapper allocates is, for every head dim the kernel takes)."""
+def _check_aligned16(what, *tensors):
+    """The bf16 kernels' 16-byte copies: every pointer 16-byte aligned, the
+    batch, head and seq strides multiples of 8 elements (the output buffers
+    the wrappers allocate are, for every head dim the kernels take)."""
     for t in tensors:
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(
-                f"flash_attention_fwd: the bf16 kernel copies 16-byte rows; "
+                f"{what}: the bf16 kernel copies 16-byte rows; "
                 f"a view at offset {t.data_ptr() % 16} B from 16-byte "
                 f"alignment with strides {t.stride()} is not taken (strides "
                 f"of batch, head and seq must be multiples of 8)")
@@ -139,6 +147,12 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
                        ctypes.POINTER(ctypes.c_longlong), I, I, I, P]
+        fn.restype = I
+    fn = lib.repro_flash_attention_bwd
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 12 + [I] * 6 + [
+            ctypes.POINTER(ctypes.c_longlong), I, I, ctypes.c_float, I, P]
         fn.restype = I
     return lib
 
@@ -189,3 +203,70 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     return ((dq * dq_scale).reshape(b, hq, sq, hd).to(q.dtype),
             torch.cat(dks, dim=2).to(k.dtype),
             torch.cat(dvs, dim=2).to(v.dtype))
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, dq_scale: float = 1.0):
+    """K1's backward: (dq, dk, dv) of ``flash_attention_bwd_plain``'s
+    contract, from the forward's inputs, ``out`` and ``lse`` and the
+    output's gradient ``dout`` ([b, hq, sq, hd], any strides with a
+    contiguous head_dim axis).
+
+    bfloat16 CUDA tensors launch the kernels; each gradient is then a view
+    of a ``[b, s, h, hd]``-contiguous buffer, the model's layout.  CPU and
+    meta tensors, and float32 ones on the card (their checks' tolerance),
+    take the plain version; other devices raise.
+    """
+    if q.device.type in _build.PLAIN_DEVICES or (
+            q.device.type == "cuda" and q.dtype == torch.float32):
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         dq_scale=dq_scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_bwd: no kernel for {q.device}")
+    b, hq, sq, hd = q.shape
+    _, hkv, sk, _ = k.shape
+    bf16 = (q, k, v, out, dout)
+    if any(t.dtype != torch.bfloat16 for t in bf16) or (
+            lse.dtype != torch.float32):
+        raise TypeError("flash_attention_bwd takes bfloat16 q, k, v, out "
+                        "and dout and a float32 lse, not "
+                        f"{[t.dtype for t in bf16]} and {lse.dtype}")
+    if (hd not in HEAD_DIMS or k.shape[-1] != hd or v.shape != k.shape
+            or out.shape != q.shape or dout.shape != q.shape
+            or lse.shape != (b, hq, sq)):
+        raise ValueError(f"flash_attention_bwd: head_dim {hd} (the kernel "
+                         f"takes {HEAD_DIMS}), q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}, "
+                         f"lse {tuple(lse.shape)}")
+    if hq % hkv or k.shape[0] != b:
+        raise ValueError(f"flash_attention_bwd: q heads {hq} not a multiple "
+                         f"of kv heads {hkv}, or batch mismatch")
+    if any(t.device != q.device for t in (k, v, out, lse, dout)):
+        raise ValueError("flash_attention_bwd: inputs on different devices")
+    if any(t.stride(-1) != 1 for t in bf16):
+        raise ValueError("flash_attention_bwd: head_dim must be contiguous")
+    _check_aligned16("flash_attention_bwd", *bf16)
+    lse = lse.contiguous()
+    grads = [torch.empty((b, s, h, hd), dtype=q.dtype,
+                         device=q.device).transpose(1, 2)
+             for s, h in ((sq, hq), (sk, hkv), (sk, hkv))]
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    # under GQA, each query head's float32 dk and dv before the group's sum
+    parts = (torch.empty((2, b, hq, sk, hd), dtype=torch.float32,
+                         device=q.device) if hq > hkv else None)
+    tensors = (q, k, v, out, dout, *grads)
+    strides = (ctypes.c_longlong * 24)(
+        *(st for t in tensors for st in t.stride()[:3]))
+    scratch = ((None, None) if parts is None
+               else (parts[0].data_ptr(), parts[1].data_ptr()))
+    lib = _lib()
+    err = lib.repro_flash_attention_bwd(
+        *(t.data_ptr() for t in tensors[:5]), lse.data_ptr(),
+        delta.data_ptr(), *(t.data_ptr() for t in grads), *scratch, b, hq,
+        hkv, sq, sk, hd, strides, int(causal), int(window), float(dq_scale),
+        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "flash_attention_bwd launch")
+    COUNTER_BWD.add()
+    return tuple(grads)

@@ -5,7 +5,8 @@ tensor runs the kernel's plain PyTorch version, a CUDA tensor launches the
 hand-written kernel (or raises) — there is no fallback from one to the
 other.  Each forward is wrapped in a ``torch.autograd.Function`` whose
 backward is plain PyTorch, as the reference's Pallas path backs its
-forward kernels with an XLA backward.
+forward kernels with an XLA backward; attention's backward is a kernel
+too on bf16 CUDA tensors (K1b, ``flash_attention_bwd``).
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
 
-KERNELS = {"flash_attention_fwd": _fa.COUNTER, "rmsnorm": _rn.COUNTER,
+KERNELS = {"flash_attention_fwd": _fa.COUNTER,
+           "flash_attention_bwd": _fa.COUNTER_BWD, "rmsnorm": _rn.COUNTER,
            "flash_decode": _fd.COUNTER, "ssd_scan": _ssd.COUNTER}
 
 
@@ -49,9 +51,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qt, kt, vt, out, lse = ctx.saved_tensors
-        dq, dk, dv = _fa.flash_attention_bwd_plain(
-            qt, kt, vt, out, lse, dout.transpose(1, 2), causal=ctx.causal,
-            window=ctx.window, dq_scale=ctx.scale)
+        dq, dk, dv = _fa.flash_attention_bwd(
+            qt, kt, vt, out, lse, dout.contiguous().transpose(1, 2),
+            causal=ctx.causal, window=ctx.window, dq_scale=ctx.scale)
         return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
                 None, None)
 

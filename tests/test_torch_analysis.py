@@ -233,6 +233,23 @@ def test_a_kernel_call_counts_as_its_kernels_work():
     assert c.by_op["kernel flash_attention_fwd"] == [
         1, 4 * b * hq * pairs * hd,
         (2 * b * s * hq * hd + 2 * b * s * hkv * hd) * 2 + b * hq * s * 4]
+    # K1b: five products a pair; q, k, v, out, dout, lse in, dq, dk, dv out
+    qg, kg, vg = (t.requires_grad_() for t in (q, k, v))
+    with roofline.CostCounter() as c, roofline._as_kernels(c):
+        out = ops.flash_attention(qg, kg, vg, window=100)
+        torch.autograd.grad(out, (qg, kg, vg), _meta(b, s, hq, hd))
+    assert c.by_op["kernel flash_attention_bwd"] == [
+        1, 10 * b * hq * pairs * hd,
+        (4 * b * s * hq * hd + 4 * b * s * hkv * hd) * 2 + b * hq * s * 4]
+    # float32 runs the plain backward on the card: counted as its aten ops
+    qf, kf, vf = (_meta(*t.shape, dtype=torch.float32).requires_grad_()
+                  for t in (q, k, v))
+    with roofline.CostCounter() as c, roofline._as_kernels(c):
+        out = ops.flash_attention(qf, kf, vf, window=100)
+        torch.autograd.grad(out, (qf, kf, vf),
+                            _meta(b, s, hq, hd, dtype=torch.float32))
+    assert "kernel flash_attention_bwd" not in c.by_op
+    assert "kernel flash_attention_fwd" in c.by_op
     x, scale = _meta(4, 7, 32), _meta(32)
     with roofline.CostCounter() as c, roofline._as_kernels(c):
         ops.rmsnorm(x, scale)
@@ -264,5 +281,7 @@ def test_kernel_counts_skip_what_the_kernels_skip():
     # K1 scores the causal half of the pairs and writes no score matrix
     assert k["F"]["flops"] < p["F"]["flops"]
     assert k["F"]["bytes"] < p["F"]["bytes"] / 2
-    # B recomputes the forward through K1; its backward is plain either way
-    assert k["B"]["bytes"] < p["B"]["bytes"]
+    # B recomputes the forward through K1, and its backward is K1b, which
+    # also scores only the causal half and keeps no score tile
+    assert k["B"]["flops"] < p["B"]["flops"]
+    assert k["B"]["bytes"] < p["B"]["bytes"] / 2

@@ -208,30 +208,32 @@ def test_k1_plan_tests_cover_the_kernels_block_m():
     assert used <= {64, 128}
 
 
-def k1_plan(sq, sk, window, block_m, causal=True):
+def k1_plan(sq, sk, window, block_m, causal=True, block_n=K1_BLOCK_N):
     """The bf16 kernel's blocks of one (head, batch row) in launch order
     (``blockIdx.z``), each as (first query row, the key tiles it visits):
-    heaviest first, and only tiles that can hold an unmasked entry."""
+    heaviest first, and only tiles that can hold an unmasked entry.  Also
+    the plan of the backward's dq pass (``block_n`` its key tile)."""
     nq = -(-sq // block_m)
     plan = []
     for z in range(nq):
         m0 = (nq - 1 - z) * block_m
         n_end = min(sk, m0 + block_m) if causal else sk
         first = m0 - window + 1
-        n_begin = (first // K1_BLOCK_N * K1_BLOCK_N
+        n_begin = (first // block_n * block_n
                    if window > 0 and first > 0 else 0)
-        plan.append((m0, list(range(n_begin, n_end, K1_BLOCK_N))))
+        plan.append((m0, list(range(n_begin, n_end, block_n))))
     return plan
 
 
-def k1_warp_flags(m0, n0, sk, window, block_m, warp, causal=True):
+def k1_warp_flags(m0, n0, sk, window, block_m, warp, causal=True,
+                  block_n=K1_BLOCK_N):
     """(idle, edge) of one of the 4 warps on a key tile: idle skips the
     tile, edge evaluates the mask (the kernel's predicates)."""
     wr0 = m0 + warp * block_m // 4
     wr1 = wr0 + block_m // 4 - 1
     idle = ((causal and n0 > wr1)
-            or (window > 0 and n0 + K1_BLOCK_N - 1 <= wr0 - window))
-    edge = (n0 + K1_BLOCK_N > sk or (causal and n0 + K1_BLOCK_N - 1 > wr0)
+            or (window > 0 and n0 + block_n - 1 <= wr0 - window))
+    edge = (n0 + block_n > sk or (causal and n0 + block_n - 1 > wr0)
             or (window > 0 and wr1 - n0 >= window))
     return idle, edge
 
@@ -367,6 +369,228 @@ def test_k1_bf16_noncausal_arithmetic_matches_pallas_interpret(b, sq, sk, hq,
         out, lse = k1_bf16_emulation(qt, kt, vt, 0, block_m, causal=False)
         close(out, want, TOL["bfloat16"])
         close(lse, want_lse.numpy(), 1e-4)
+
+
+# K1b, the bf16 backward: its two passes' tile plans and their arithmetic,
+# mirrored in Python from the constants of the source's ``bwd`` namespace.
+_K1B = _K1_TC.split("namespace bwd {", 1)[1]
+#: keys per tile of the dq pass and per block of the dk/dv pass
+K1B_BLOCK_N = int(re.search(r"constexpr int BLOCK_N = (\d+);", _K1B)[1])
+#: query rows per block of the dq pass
+K1B_DQ_BLOCK_M = int(re.search(r"constexpr int DQ_BLOCK_M = (\d+);",
+                               _K1B)[1])
+#: ``bwd::kv_block_m``: (largest hd of the first value, first, second)
+K1B_KV_BLOCK_M_RULE = tuple(map(int, re.search(
+    r"kv_block_m\(\) \{\s*return HD <= (\d+) \? (\d+) : (\d+);",
+    _K1B).groups()))
+#: (b, sq, sk, hq, hkv, hd, window, causal): causal MHA and GQA (8/2, MQA
+#: 8/1, ragged), windows, non-causal sq != sk with ragged keys, and the
+#: main paths' training shapes (gpt3, zamba2, qwen2-vl 12/2, gemma3 8/4 at
+#: hd 256 with its 1024 window, seamless's encoder and cross-attention)
+K1B_PLAN_CASES = (
+    [(b, s, s, hq, hkv, hd, w, True) for b, s, hq, hkv, hd, w in SHAPES]
+    + [(b, sq, sk, hq, hkv, hd, 0, False)
+       for b, sq, sk, hq, hkv, hd in NONCAUSAL_SHAPES]
+    + [(1, 2048, 2048, 16, 16, 96, 0, True),
+       (1, 2048, 2048, 32, 32, 64, 0, True),
+       (1, 2048, 2048, 12, 2, 128, 0, True),
+       (1, 2048, 2048, 8, 4, 256, 1024, True),
+       (1, 1000, 1000, 8, 4, 256, 300, True),
+       (1, 2048, 1536, 16, 16, 64, 0, False)])
+
+
+def k1b_kv_block_m(hd):
+    limit, small, large = K1B_KV_BLOCK_M_RULE
+    return small if hd <= limit else large
+
+
+def k1b_kv_plan(sq, sk, window, block_m, causal=True):
+    """The dk/dv pass's blocks of one (query head, batch row) in launch
+    order (``blockIdx.z``), each as (first key, the query tiles it visits):
+    those that can hold an unmasked pair with the block's keys."""
+    plan = []
+    for z in range(-(-sk // K1B_BLOCK_N)):
+        n0 = z * K1B_BLOCK_N
+        m_begin = n0 // block_m * block_m if causal else 0
+        m_end = (min(sq, n0 + K1B_BLOCK_N - 1 + window) if window > 0
+                 else sq)
+        plan.append((n0, list(range(m_begin, m_end, block_m))))
+    return plan
+
+
+def k1b_kv_warp_flags(n0, m0, sq, sk, window, block_m, warp, causal=True):
+    """(idle, edge) of one of the 4 warps (16 keys each) on a query tile."""
+    kw0 = n0 + 16 * warp
+    kw1 = kw0 + 15
+    idle = ((causal and m0 + block_m - 1 < kw0)
+            or (window > 0 and m0 - kw1 >= window))
+    edge = (kw1 >= sk or m0 + block_m > sq or (causal and m0 < kw1)
+            or (window > 0 and m0 + block_m - 1 - kw0 >= window))
+    return idle, edge
+
+
+def test_k1b_plan_tests_cover_the_kernels_block_sizes():
+    """The backward's plan and arithmetic tests run the dk/dv pass at query
+    tiles of 32 and 64 rows: the values ``bwd::kv_block_m`` takes at every
+    head dim of the kernel; each warp owns 16 rows or keys."""
+    assert {k1b_kv_block_m(hd) for hd in fa.HEAD_DIMS} <= {32, 64}
+    assert K1B_DQ_BLOCK_M == K1B_BLOCK_N == 64
+
+
+@pytest.mark.parametrize("block_m", [32, 64])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,window,causal", K1B_PLAN_CASES)
+def test_k1b_tile_plans_visit_every_unmasked_pair_once(b, sq, sk, hq, hkv,
+                                                        hd, window, causal,
+                                                        block_m):
+    """Both passes of the backward score every unmasked (query, key) pair
+    exactly once (each query head runs the same plan, in both passes its
+    own blocks), visit no tile without one, and skip or mask by predicates
+    that agree with the mask; the longest causal tiles go out first."""
+    valid = k1_valid(sq, sk, window, causal)
+    # the dq pass: the forward's plan at its own tiles, every query head
+    seen = np.zeros((sq, sk), np.int8)
+    plan = k1_plan(sq, sk, window, K1B_DQ_BLOCK_M, causal, K1B_BLOCK_N)
+    for m0, tiles in plan:
+        rows = slice(m0, min(sq, m0 + K1B_DQ_BLOCK_M))
+        for n0 in tiles:
+            keys = slice(n0, min(sk, n0 + K1B_BLOCK_N))
+            assert valid[rows, keys].any(), (m0, n0)
+            seen[rows, keys] += 1
+            for warp in range(4):
+                idle, edge = k1_warp_flags(m0, n0, sk, window,
+                                           K1B_DQ_BLOCK_M, warp, causal,
+                                           K1B_BLOCK_N)
+                w0 = m0 + 16 * warp
+                wv = valid[w0:min(sq, w0 + 16), keys]
+                if idle:
+                    assert not wv.any(), (m0, n0, warp)
+                elif not edge:
+                    assert n0 + K1B_BLOCK_N <= sk and wv.all(), (m0, n0)
+    assert (seen[valid] == 1).all() and seen.max() <= 1
+    # the dk/dv pass
+    seen = np.zeros((sq, sk), np.int8)
+    plan = k1b_kv_plan(sq, sk, window, block_m, causal)
+    for n0, tiles in plan:
+        keys = slice(n0, min(sk, n0 + K1B_BLOCK_N))
+        for m0 in tiles:
+            rows = slice(m0, min(sq, m0 + block_m))
+            assert valid[rows, keys].any(), (n0, m0)
+            seen[rows, keys] += 1
+            for warp in range(4):
+                idle, edge = k1b_kv_warp_flags(n0, m0, sq, sk, window,
+                                               block_m, warp, causal)
+                kw0 = n0 + 16 * warp
+                wv = valid[rows, kw0:min(sk, kw0 + 16)]
+                if idle:
+                    assert not wv.any(), (n0, m0, warp)
+                elif not edge:
+                    assert (kw0 + 16 <= sk and m0 + block_m <= sq
+                            and wv.all()), (n0, m0, warp)
+    assert (seen[valid] == 1).all() and seen.max() <= 1
+    if causal and window == 0:  # the lowest keys see the most queries
+        work = [len(t) for _, t in plan]
+        assert work == sorted(work, reverse=True)
+
+
+def k1b_bf16_emulation(q, k, v, out, lse, dout, window, causal=True,
+                       dq_scale=1.0, kv_block_m=64):
+    """The backward kernels' arithmetic on the CPU, tile by tile of their
+    plans: delta = rowsum(dout * out) in float32; S (or S^T) and dP from
+    the bf16 operands in float32; P = exp(S - lse), 0 where masked; dS =
+    P (dP - delta); bf16(dS) K summed over the key tiles into dq, bf16(P^T)
+    dO and bf16(dS^T) Q over each query head's tiles into its dv and dk
+    (under GQA float32 partials, then added over the group in head order),
+    each in float32, rounded once (dq after ``dq_scale``).  Inputs in the
+    kernel's layout, bf16; lse float32."""
+    b, hq, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    valid = torch.from_numpy(k1_valid(sq, sk, window, causal))
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
+    delta = (dof * of).sum(-1)
+    kr, vr = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
+    dq = torch.empty(q.shape, dtype=torch.bfloat16)
+    for m0, tiles in k1_plan(sq, sk, window, K1B_DQ_BLOCK_M, causal,
+                             K1B_BLOCK_N):
+        r = slice(m0, min(sq, m0 + K1B_DQ_BLOCK_M))
+        acc = torch.zeros((b, hq, r.stop - m0, hd))
+        for n0 in tiles:
+            c = slice(n0, min(sk, n0 + K1B_BLOCK_N))
+            s = qf[:, :, r] @ kr[:, :, c].transpose(-1, -2)
+            p = torch.where(valid[r, c], torch.exp(s - lse[:, :, r, None]),
+                            0.0)
+            dp = dof[:, :, r] @ vr[:, :, c].transpose(-1, -2)
+            ds = p * (dp - delta[:, :, r, None])
+            acc = acc + ds.bfloat16().float() @ kr[:, :, c]
+        dq[:, :, r] = (acc * dq_scale).bfloat16()
+    q5, do5 = (t.reshape(b, hkv, g, sq, hd) for t in (qf, dof))
+    lse5, delta5 = (t.reshape(b, hkv, g, sq) for t in (lse, delta))
+    dk = torch.empty(k.shape, dtype=torch.bfloat16)
+    dv = torch.empty(v.shape, dtype=torch.bfloat16)
+    for n0, tiles in k1b_kv_plan(sq, sk, window, kv_block_m, causal):
+        c = slice(n0, min(sk, n0 + K1B_BLOCK_N))
+        dk_sum = torch.zeros((b, hkv, c.stop - n0, hd))
+        dv_sum = torch.zeros_like(dk_sum)
+        for j in range(g):  # the group's partials, added in head order
+            dk_acc = torch.zeros_like(dk_sum)
+            dv_acc = torch.zeros_like(dk_sum)
+            for m0 in tiles:
+                r = slice(m0, min(sq, m0 + kv_block_m))
+                qj, doj = q5[:, :, j, r], do5[:, :, j, r]
+                st = kf[:, :, c] @ qj.transpose(-1, -2)  # [b, hkv, keys, q]
+                pt = torch.where(valid[r, c].T,
+                                 torch.exp(st - lse5[:, :, j, None, r]), 0.0)
+                dv_acc = dv_acc + pt.bfloat16().float() @ doj
+                dpt = vf[:, :, c] @ doj.transpose(-1, -2)
+                dst = pt * (dpt - delta5[:, :, j, None, r])
+                dk_acc = dk_acc + dst.bfloat16().float() @ qj
+            dk_sum, dv_sum = dk_sum + dk_acc, dv_sum + dv_acc
+        dk[:, :, c] = dk_sum.bfloat16()
+        dv[:, :, c] = dv_sum.bfloat16()
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,window,causal",
+                         K1B_PLAN_CASES[:len(SHAPES) + len(NONCAUSAL_SHAPES)])
+def test_k1b_bf16_arithmetic_matches_jax_grad(b, sq, sk, hq, hkv, hd, window,
+                                               causal):
+    """The backward kernels' arithmetic (bf16 operands, float32 sums tile by
+    tile, bf16(P) and bf16(dS), one final rounding) on bf16 inputs against
+    ``jax.grad`` of the reference's ``blocked_attention`` on the same bf16
+    inputs (its lse VJP rounds at the same points), within the bf16
+    tolerance, for either query tile of the dk/dv pass; and against
+    ``flash_attention_bwd_plain``, whose float32 sums run in another order."""
+    qn, kn, vn = attn_inputs(b, sq, hq, hkv, hd, seed=sq + 11 * sk + hd,
+                             sk=sk)
+    cot = np.random.default_rng(sk + hd).standard_normal(
+        (b, sq, hq, hd)).astype(np.float32)
+    cot = torch.from_numpy(cot).bfloat16()
+    (qj, qt), (kj, kt), (vj, vt) = (both(a, "bfloat16") for a in (qn, kn, vn))
+    pos = jnp.broadcast_to(jnp.arange(sq)[None], (b, sq))
+    cot_j = jnp.asarray(cot.float().numpy())
+
+    def f(q, k, v):
+        o = jlayers.blocked_attention(q, k, v, pos, causal, window, 256)
+        return jnp.sum(o.astype(jnp.float32) * cot_j)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(qj, kj, vj)
+    scale = hd ** -0.5
+    qs = (qt * scale).to(torch.bfloat16).transpose(1, 2)
+    ks, vs = kt.transpose(1, 2), vt.transpose(1, 2)
+    out, lse = fa.flash_attention_fwd_plain(qs, ks, vs, causal=causal,
+                                            window=window)
+    dout = cot.transpose(1, 2)
+    plain = fa.flash_attention_bwd_plain(qs, ks, vs, out, lse, dout,
+                                         causal=causal, window=window,
+                                         dq_scale=scale)
+    for block_m in (32, 64):
+        got = k1b_bf16_emulation(qs, ks, vs, out, lse, dout, window, causal,
+                                 scale, block_m)
+        for g_, w, p_ in zip(got, want, plain):
+            assert g_.dtype == torch.bfloat16 and g_.shape == p_.shape
+            close(g_.transpose(1, 2), np.asarray(w, np.float32),
+                  TOL["bfloat16"])
+            close(g_, p_.float().numpy(), TOL["bfloat16"])
 
 
 def test_plain_attention_matches_oracle():
@@ -581,7 +805,10 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     ops.ssd(x, torch.rand(1, 40, 2), -torch.rand(2), torch.randn(1, 40, 8),
             torch.randn(1, 40, 8), torch.ones(2), chunk=16)
     ops.decode_attention(q[:, :1], q, q, 7)
-    assert ops.launch_counts() == {"flash_attention_fwd": 0, "rmsnorm": 0,
+    qg = torch.randn(1, 16, 2, 32, requires_grad=True)
+    ops.flash_attention(qg, qg, qg).sum().backward()  # the plain backward
+    assert ops.launch_counts() == {"flash_attention_fwd": 0,
+                                   "flash_attention_bwd": 0, "rmsnorm": 0,
                                    "flash_decode": 0, "ssd_scan": 0}
 
 
@@ -601,6 +828,8 @@ def test_wrappers_reject_devices_without_a_kernel():
     with pytest.raises(RuntimeError, match="no kernel"):
         fa.flash_attention_fwd(x, x, x)
     with pytest.raises(RuntimeError, match="no kernel"):
+        fa.flash_attention_bwd(x, x, x, x, x, x)
+    with pytest.raises(RuntimeError, match="no kernel"):
         ssd_mod.ssd_scan(x, x, x, x, x, x, chunk=16)
     with pytest.raises(RuntimeError, match="no kernel"):
         fd.flash_decode(x, x, x, 1)
@@ -612,6 +841,8 @@ def test_wrappers_reject_devices_without_a_kernel():
     q = torch.empty(1, 2, 16, 32, device="meta")
     out, lse = fa.flash_attention_fwd(q, q, q)
     assert out.shape == q.shape and lse.shape == (1, 2, 16)
+    grads = fa.flash_attention_bwd(q, q, q, out, lse, out)
+    assert all(t.shape == q.shape and t.device.type == "meta" for t in grads)
     x, bc, h = (torch.empty(shape, device="meta") for shape in
                 ((1, 32, 2, 16), (1, 32, 8), (2,)))
     y = ops.ssd(x, torch.empty(1, 32, 2, device="meta"), h, bc, bc, h,
@@ -646,8 +877,8 @@ def test_kernels_match_plain_versions_on_card(dtype):
     close(rn.rmsnorm(x, s).cpu(), rn.rmsnorm_plain(x, s).cpu().float().numpy(),
           TOL[dtype])
     assert ops.launch_counts() == {"flash_attention_fwd": 2 * len(shapes),
-                                   "rmsnorm": 1, "flash_decode": 0,
-                                   "ssd_scan": 0}
+                                   "flash_attention_bwd": 0, "rmsnorm": 1,
+                                   "flash_decode": 0, "ssd_scan": 0}
 
 
 @pytest.mark.cuda
