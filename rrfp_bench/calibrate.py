@@ -7,7 +7,7 @@ For each seed: the program's compared steps (set-up alone, no window) and
 the reference's, and the gaps between them (the lower readings).  For the
 first ``--control-seeds`` seeds also: the control, the reference in the
 next precision below the configuration's (float8 matrix products below
-bfloat16: ``reference/model.py``), and the fault of half the batch left
+bfloat16: ``reference/precision.py``), and the fault of half the batch left
 out (its second half of rows a copy of the first, the mean over the rest),
 each against the float32 reference.  A step that leaves the state unchanged
 reads a ``change_gap`` of 1 and needs no run.  Needs the cell's CUDA card;
@@ -40,7 +40,7 @@ def main(argv=None) -> int:
 
     from rrfp_bench.harness import checks, manifest, program
     from rrfp_bench.reference import train as reference
-    from rrfp_bench.reference.model import CONTROL
+    from rrfp_bench.reference.precision import CONTROL
 
     cell = manifest.cell(ROOT, args.workload)
     if not torch.cuda.is_available():

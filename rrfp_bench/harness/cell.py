@@ -11,7 +11,6 @@ import torch
 
 from rrfp_bench.harness import checks, manifest, program, trace
 from rrfp_bench.reference import train as reference
-from rrfp_bench.yardstick.flops import model_flops
 
 
 def _power_limit() -> str | None:
@@ -46,7 +45,8 @@ def run_cell(cell: manifest.Cell, *, seed: int, seconds: float,
     dev = torch.device(device)
     notes = []
     ctx = {"config": c, "traffic": t, "tokens_per_step": rows * t["seq"],
-           "flops_per_step": model_flops(c, rows, t["seq"])}
+           "flops_per_step": manifest.family(c).model_flops(c, rows,
+                                                            t["seq"])}
     if trace_on:
         tr = ran.trace
         if tr is None:

@@ -1,9 +1,11 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
-A configuration is the file its entry names; a traffic mix is
-``rrfp_bench/traffic/<traffic>.json``; a cell's limits for ``correct`` are
-``rrfp_bench/limits/<workload>.json``; a metric, end-to-end or per-layer,
-is read by ``rrfp_bench/metrics/<name>.py``'s ``read(ctx)``.
+A configuration is the file its entry names, and its model is the family
+module ``rrfp_bench/families/<family>.py`` that the file names under
+``"family"``; a traffic mix is ``rrfp_bench/traffic/<traffic>.json``; a
+cell's limits for ``correct`` are ``rrfp_bench/limits/<workload>.json``
+(each beside the manifest that names it); a metric, end-to-end or
+per-layer, is read by ``rrfp_bench/metrics/<name>.py``'s ``read(ctx)``.
 """
 from __future__ import annotations
 
@@ -44,9 +46,14 @@ def cell(root: Path, name: str) -> Cell:
     w = by_name[name]
     conf = {cf["name"]: cf for cf in bench["configs"]}[w["config"]]
     config = json.loads((root / conf["file"]).read_text())
-    traffic = json.loads((BENCH / "traffic" / f"{w['traffic']}.json")
+    if "family" not in config:
+        raise SystemExit(f"{conf['file']} names no model family: it needs "
+                         f"\"family\", a module of rrfp_bench/families/")
+    family(config)
+    files = root / "rrfp_bench"
+    traffic = json.loads((files / "traffic" / f"{w['traffic']}.json")
                          .read_text())
-    limits = json.loads((BENCH / "limits" / f"{name}.json").read_text())
+    limits = json.loads((files / "limits" / f"{name}.json").read_text())
     return Cell(name, config, traffic, w["chips"], limits,
                 [m for m in bench["end_to_end"] if _applies(m, name)],
                 [m for m in bench["per_layer"] if _applies(m, name)])
@@ -60,3 +67,19 @@ def reader(metric: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def family(c: dict):
+    """The module ``rrfp_bench/families/<family>.py`` that configuration
+    ``c`` names: its model (the interface: :mod:`rrfp_bench.families`)."""
+    name = c.get("family")
+    if not isinstance(name, str) or not name.isidentifier():
+        raise SystemExit(f"configuration {c.get('name')!r} names no model "
+                         f"family: \"family\" has to name a module of "
+                         f"rrfp_bench/families/, not {name!r}")
+    module = f"rrfp_bench.families.{name}"
+    if importlib.util.find_spec(module) is None:
+        raise SystemExit(f"configuration {c.get('name')!r} names family "
+                         f"{name!r}: there is no rrfp_bench/families/"
+                         f"{name}.py")
+    return importlib.import_module(module)

@@ -25,10 +25,9 @@ import time
 
 import torch
 
-from rrfp_bench.harness import weights
+from rrfp_bench.harness import manifest, weights
 from rrfp_bench.harness.trace import Tracer
 from rrfp_bench.reference.train import Readings, slice_norms, to_host
-from rrfp_bench.yardstick.flops import head_dim, pattern
 
 #: the program's ``--steps``: never reached, it sets the learning-rate
 #: schedule (warm-up over 20 steps, cosine over this many)
@@ -55,8 +54,8 @@ class ProgramRun:
 def program_config(c: dict, cfg=None):
     """The program's own config of ``c["arch"]`` (cut to ``num_layers``, in
     the dtype ``c`` states: the program takes any model dtype), checked
-    against the benchmark's numbers; ``cfg`` replaces it (tests at reduced
-    widths pass theirs)."""
+    against the benchmark's numbers by ``c``'s family; ``cfg`` replaces it
+    (tests at reduced widths pass theirs)."""
     from repro_torch.configs import registry
 
     if cfg is None:
@@ -64,32 +63,7 @@ def program_config(c: dict, cfg=None):
         if c["num_layers"] < cfg.num_layers:
             cfg = registry.cut_depth(c["arch"], c["num_layers"])
         cfg = dataclasses.replace(cfg, dtype=getattr(torch, c["dtype"]))
-    got = {"num_layers": cfg.num_layers, "d_model": cfg.d_model,
-           "num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
-           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
-           "vocab_size": cfg.vocab_size, "act": cfg.act,
-           "norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
-           "dtype": str(cfg.dtype).removeprefix("torch."),
-           "pattern": list(cfg.pattern),
-           "qkv_bias": cfg.qkv_bias, "mrope": cfg.mrope,
-           "embed_input": cfg.embed_input,
-           "plain": (cfg.sliding_window, cfg.encoder_layers,
-                     cfg.shared_attn_period, cfg.ssm is None)}
-    want = {k: c[k] for k in got if k in c}
-    want.update(head_dim=head_dim(c), pattern=pattern(c),
-                qkv_bias=bool(c.get("qkv_bias")),
-                mrope=bool(c.get("mrope_section")),
-                embed_input=bool(c.get("embed_input")),
-                plain=(0, 0, 0, True))
-    if c.get("moe"):
-        mc = cfg.moe
-        got["moe"] = None if mc is None else {
-            "num_experts": mc.num_experts, "top_k": mc.top_k,
-            "num_shared": mc.num_shared,
-            "capacity_factor": mc.capacity_factor,
-            "dense_d_ff": mc.dense_d_ff}
-        want["moe"] = {k: c["moe"][k] for k in got["moe"] or {}}
-    bad = {k: (got[k], want[k]) for k in want if got.get(k) != want[k]}
+    bad = manifest.family(c).check_program(c, cfg)
     if bad:
         raise SystemExit(f"the program's config of {c['arch']} is not the "
                          f"benchmark's (program, benchmark): {bad}")

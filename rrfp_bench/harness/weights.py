@@ -3,7 +3,8 @@ of the benchmark's own, and handed unchanged to the program and to the
 reference.
 
 A leaf is one named weight of every layer that has it, stacked ``[layers,
-...]`` (``blk.attn.wq`` of a dense decoder: ``[24, 1536, 1536]``), or an
+...]`` (``blk.attn.wq`` of a dense decoder: ``[24, 1536, 1536]``; the
+configuration's family gives each layer's shapes), or an
 IO weight (``embed``, ``head``, ``final_ln``; a config whose inputs are
 embeddings supplied by a frontend has an ``embed`` that nothing reads, as
 the program does).  Each leaf is one draw from a
@@ -20,7 +21,8 @@ import math
 
 import torch
 
-from rrfp_bench.yardstick.flops import head_dim, padded_vocab, pattern
+from rrfp_bench.harness import manifest
+from rrfp_bench.yardstick.flops import padded_vocab
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
@@ -35,58 +37,14 @@ class Leaf:
     layers: tuple[int, ...] | None  # global layers stacked; None: IO
 
 
-def _ffn(prefix: str, d: int, f: int, glu: bool, dt) -> dict:
-    out = {f"{prefix}.wi": ((d, f), dt, 1 / math.sqrt(d))}
-    if glu:
-        out[f"{prefix}.wg"] = ((d, f), dt, 1 / math.sqrt(d))
-    out[f"{prefix}.wo"] = ((f, d), dt, 1 / math.sqrt(f))
-    return out
-
-
-def layer_leaves(c: dict, kind: str) -> dict:
-    """path -> (shape, dtype, std) of one layer of ``kind``."""
-    d, hd = c["d_model"], head_dim(c)
-    nq, nkv = c["num_heads"], c["num_kv_heads"]
-    dt = DTYPES[c["dtype"]]
-    glu = c["act"] in ("swiglu", "geglu")
-    attn = {"ln1": ((d,), dt, 0.0),
-            "attn.wq": ((d, nq * hd), dt, 1 / math.sqrt(d)),
-            "attn.wk": ((d, nkv * hd), dt, 1 / math.sqrt(d)),
-            "attn.wv": ((d, nkv * hd), dt, 1 / math.sqrt(d)),
-            "attn.wo": ((nq * hd, d), dt, 1 / math.sqrt(nq * hd)),
-            "ln2": ((d,), dt, 0.0)}
-    if c.get("qkv_bias"):
-        # zeros at the start, as the program initialises them
-        attn.update({"attn.bq": ((nq * hd,), dt, 0.0),
-                     "attn.bk": ((nkv * hd,), dt, 0.0),
-                     "attn.bv": ((nkv * hd,), dt, 0.0)})
-    if kind == "attn":
-        own = {**attn, **_ffn("ffn", d, c["d_ff"], glu, dt)}
-        return {f"blk.{k}": v for k, v in own.items()}
-    moe = c["moe"]
-    if kind == "dense":
-        return {**attn, **_ffn("dense_ffn", d, moe["dense_d_ff"], glu, dt)}
-    if kind == "moe":
-        e, f = moe["num_experts"], c["d_ff"]
-        out = {**attn,
-               # the router is float32 in every model dtype
-               "moe.router": ((d, e), torch.float32, 1 / math.sqrt(d)),
-               "moe.wi": ((e, d, f), dt, 1 / math.sqrt(d))}
-        if glu:
-            out["moe.wg"] = ((e, d, f), dt, 1 / math.sqrt(d))
-        out["moe.wo"] = ((e, f, d), dt, 1 / math.sqrt(f))
-        for j in range(moe["num_shared"]):
-            out.update(_ffn(f"moe.shared{j}", d, f, glu, dt))
-        return out
-    raise ValueError(kind)
-
-
 def leaves(c: dict) -> list[Leaf]:
-    """Every leaf of the model, stage leaves first, in a fixed order."""
-    kinds = pattern(c)
+    """Every leaf of the model, stage leaves first, in a fixed order: the
+    family's layers' leaves in the order they first appear, then the IO
+    leaves."""
+    fam = manifest.family(c)
     by_path: dict[str, list] = {}
-    for g, kind in enumerate(kinds):
-        for path, spec in layer_leaves(c, kind).items():
+    for g, kind in enumerate(fam.pattern(c)):
+        for path, spec in fam.layer_leaves(c, kind).items():
             by_path.setdefault(path, [spec, []])[1].append(g)
     out = [Leaf(p, s[0], s[1], s[2], tuple(gs))
            for p, (s, gs) in by_path.items()]

@@ -1,11 +1,13 @@
 """K1's share of its roofline (%): the least time one H100 needs, at the
 peak of the model's dtype, for the traced steps' attention-forward calls,
-each counted by the frozen ``k1_work`` at the cell's shapes (q
-``[mb_rows, heads, seq, head_dim]``, causal), over the device time of the
-kernels in category K1."""
+over the device time of the kernels in category K1.  A call's bound is the
+frozen ``k1_work`` at the cell's shapes (q ``[mb_rows, heads, seq,
+head_dim]``), averaged over the family's ``attention_calls``: each layer's
+own window and causality."""
+from rrfp_bench.harness import manifest
 from rrfp_bench.yardstick.categories import K1, category
 from rrfp_bench.yardstick.flops import (DTYPE_BYTES, bound_seconds, head_dim,
-                                        k1_work)
+                                        k1_work, mean_over_calls)
 
 
 def read(ctx):
@@ -13,8 +15,12 @@ def read(ctx):
     if not spans:
         return None
     c, t = ctx["config"], ctx["traffic"]
-    flops, nbytes = k1_work(t["mb_rows"], c["num_heads"], t["seq"],
-                            c["num_kv_heads"], t["seq"], head_dim(c),
-                            DTYPE_BYTES[c["dtype"]])
-    return 100.0 * len(spans) * bound_seconds(flops, nbytes, c["dtype"]) / (
-        sum(spans) / 1e6)
+
+    def bound(window, causal):
+        flops, nbytes = k1_work(t["mb_rows"], c["num_heads"], t["seq"],
+                                c["num_kv_heads"], t["seq"], head_dim(c),
+                                DTYPE_BYTES[c["dtype"]], causal, window)
+        return bound_seconds(flops, nbytes, c["dtype"])
+
+    call = mean_over_calls(manifest.family(c).attention_calls(c), bound)
+    return 100.0 * len(spans) * call / (sum(spans) / 1e6)

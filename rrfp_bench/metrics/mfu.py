@@ -1,6 +1,7 @@
-"""Model FLOPs utilization (%) of the window: the frozen ``model_flops`` of
-a step (no recompute counted) times the steps that ended in the window,
-over the window's host-clock time and one H100's dense bf16 peak."""
+"""Model FLOPs utilization (%) of the window: the family's frozen
+``model_flops`` of a step (no recompute counted) times the steps that
+ended in the window, over the window's host-clock time and one H100's
+dense bf16 peak."""
 from rrfp_bench.yardstick.flops import PEAK_BF16_FLOPS
 
 

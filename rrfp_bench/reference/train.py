@@ -13,11 +13,12 @@ defaults of its ``AdamWConfig`` and the schedule the actor launcher gives
 it (``src/repro_torch/launch/train.py:428``: warm-up over ``min(20,
 steps)`` steps, cosine over ``steps``); the actor path does not clip.
 
-Matrix products run in float32 with TF32 off (``precision="fp64"``: the
-whole reference in float64, a witness for tests at toy sizes).  A dense
-model's rows run one at a time (the sum is the same); a MoE model's run a
-microbatch at a time, since an expert's capacity is counted over one
-microbatch's tokens.
+The model is the configuration's family's ``Reference``.  Matrix
+products run in float32 with TF32 off (``precision="fp64"``: the whole
+reference in float64, a witness for tests at toy sizes).  The rows run one
+at a time (the sum is the same), or a microbatch at a time where the
+family says the model needs it (a MoE model: an expert's capacity is
+counted over one microbatch's tokens).
 """
 from __future__ import annotations
 
@@ -26,10 +27,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from rrfp_bench.harness import manifest
 from rrfp_bench.harness.weights import (DTYPES, draw, draw_all, leaf_key,
                                         leaves)
 from rrfp_bench.reference import data
-from rrfp_bench.reference.model import Reference
 from rrfp_bench.yardstick.flops import padded_vocab
 
 BETA1, BETA2, EPS, WEIGHT_DECAY, MIN_LR_FRAC = 0.9, 0.95, 1e-8, 0.1, 0.1
@@ -124,13 +125,14 @@ def train(c: dict, traffic: dict, *, seed: int, device, lr: float,
     v = {k: torch.zeros_like(t) for k, t in m.items()}
     batch = traffic["microbatches"] * traffic["mb_rows"]
     seq = traffic["seq"]
-    block = traffic["mb_rows"] if c.get("moe") else 1
+    fam = manifest.family(c)
+    block = traffic["mb_rows"] if fam.per_microbatch(c) else 1
     warmup = min(20, total_steps)
     losses, grad_norms = [], {}
     for step in range(steps):
         params = {k: t.to(work).requires_grad_()
                   for k, t in stored.items()}
-        model = Reference(c, params, rows, precision)
+        model = fam.Reference(c, params, rows, precision)
         arrays = data.batch(padded_vocab(c), batch, seq, seed=seed,
                             step=step,
                             embed_d=c["d_model"] if c.get("embed_input")

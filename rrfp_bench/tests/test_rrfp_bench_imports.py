@@ -1,7 +1,7 @@
 """What the benchmark runs imports neither JAX nor the JAX package
 (``repro``, compared by whole top-level name: ``repro_torch`` is the
-program), nor anything of ``benchmarks/``; the reference and the yardstick
-import nothing of the program."""
+program), nor anything of ``benchmarks/``; the reference, the yardstick
+and the model families import nothing of the program."""
 import ast
 import json
 import os
@@ -36,7 +36,7 @@ def test_no_banned_top_level_import(path):
     assert not _imports(path) & BANNED
 
 
-@pytest.mark.parametrize("part", ["reference", "yardstick"])
+@pytest.mark.parametrize("part", ["reference", "yardstick", "families"])
 def test_reference_and_yardstick_import_nothing_of_the_program(part):
     for path in (BENCH / part).rglob("*.py"):
         assert "repro_torch" not in _imports(path), path

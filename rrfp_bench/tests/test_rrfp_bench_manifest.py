@@ -81,7 +81,9 @@ def test_every_cell_resolves_to_its_files():
     for c in BENCH["configs"]:
         path = ROOT / c["file"]
         assert c["file"].startswith("rrfp_bench/") and path.is_file()
-        assert json.loads(path.read_text())["name"] == c["name"]
+        config = json.loads(path.read_text())
+        assert config["name"] == c["name"]
+        assert callable(manifest.family(config).Reference)
         assert all(NAME.match(k) for k in c["reduced"])
     used = {w["config"] for w in BENCH["workloads"]}
     assert used == {c["name"] for c in BENCH["configs"]}

@@ -11,7 +11,7 @@ import torch
 from rrfp_bench.harness import cell as cell_run
 from rrfp_bench.harness import checks, program
 from rrfp_bench.reference import train as reference
-from rrfp_bench.reference.model import CONTROL
+from rrfp_bench.reference.precision import CONTROL
 from rrfp_bench.tests._small import CELLS, any_cell, small_cell
 
 #: one cell of each model: the dense, MoE and embedding-input references

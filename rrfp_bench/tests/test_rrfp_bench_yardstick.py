@@ -1,10 +1,11 @@
-"""The benchmark's frozen arithmetic against counts worked out by hand at
-each cell's shapes."""
+"""The benchmark's frozen arithmetic, and the decoder family's counts,
+against counts worked out by hand at each cell's shapes."""
 import json
 from pathlib import Path
 
 import pytest
 
+from rrfp_bench.families import decoder
 from rrfp_bench.yardstick import categories, flops
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -18,22 +19,22 @@ def _config(name):
 def test_gpt3_large_model_flops_at_32_x_2048():
     c = _config("paper-gpt3-large")
     # 24 x (4 d^2 + 2 d d_ff + 2 d) + d + 50304 d, d = 1536, d_ff = 6144
-    assert flops.active_params(c) == 756_819_456
+    assert decoder.active_params(c) == 756_819_456
     dense = 6 * 756_819_456 * 65_536
     attn = 6 * 32 * 2048 * 24 * 1024 * 2 * 16 * 96
     assert (dense, attn) == (297_593_519_210_496, 29_686_813_949_952)
-    assert flops.model_flops(c, 32, 2048) == dense + attn
-    assert flops.model_flops(c, 32, 2048) == pytest.approx(3.27e14, rel=1e-3)
+    assert decoder.model_flops(c, 32, 2048) == dense + attn
+    assert decoder.model_flops(c, 32, 2048) == pytest.approx(3.27e14, rel=1e-3)
 
 
 def test_deepseek_moe_4_layers_model_flops_at_8_x_4096():
     c = _config("deepseek-moe-16b-l4")
     # dense layer (d_ff 10944) + 3 MoE layers (6 routed + 2 shared experts
     # of 1408, a 64-wide router) + final norm + LM head
-    assert flops.active_params(c) == 552_093_696
-    assert flops.model_flops(c, 8, 4096) == (
+    assert decoder.active_params(c) == 552_093_696
+    assert decoder.model_flops(c, 8, 4096) == (
         6 * 552_093_696 * 32_768 + 6 * 8 * 4096 * 4 * 2048 * 2 * 16 * 128)
-    assert flops.model_flops(c, 8, 4096) == pytest.approx(1.15e14, rel=2e-3)
+    assert decoder.model_flops(c, 8, 4096) == pytest.approx(1.15e14, rel=2e-3)
 
 
 def test_qwen2_vl_2b_language_model_flops_at_16_x_2048():
@@ -43,11 +44,11 @@ def test_qwen2_vl_2b_language_model_flops_at_16_x_2048():
     layer = (2 * 1536 ** 2 + 2 * 1536 * 256 + 16 * 128 + 3 * 1536 * 8960
              + 2 * 1536)
     assert layer == 46_797_824
-    assert flops.active_params(c) == 28 * layer + 1536 + 151_936 * 1536
-    assert flops.active_params(c) == 1_543_714_304
-    assert flops.model_flops(c, 16, 2048) == (
+    assert decoder.active_params(c) == 28 * layer + 1536 + 151_936 * 1536
+    assert decoder.active_params(c) == 1_543_714_304
+    assert decoder.model_flops(c, 16, 2048) == (
         6 * 1_543_714_304 * 32_768 + 6 * 16 * 2048 * 28 * 1024 * 2 * 12 * 128)
-    assert flops.model_flops(c, 16, 2048) == pytest.approx(3.208e14,
+    assert decoder.model_flops(c, 16, 2048) == pytest.approx(3.208e14,
                                                            rel=1e-3)
 
 

@@ -1,24 +1,22 @@
-"""The benchmark's frozen arithmetic: model FLOPs, K1 and K2 work, H100 peaks.
+"""The benchmark's frozen arithmetic that no model owns: K1 and K2 work,
+H100 peaks.  A model's own counts (its FLOPs, its attention calls) are its
+family's (:mod:`rrfp_bench.families`).
 
 Copies, on the benchmark's own configuration dicts (``configs/<name>.json``),
 of the port's sound counting code as it stood when the benchmark was
 written.  The program may change its copies; these stay, so that a later
 change to the program cannot move its own yardstick.
 
-* :func:`model_flops`: ``ArchModel.model_flops``
-  (``src/repro_torch/models/build.py:560``) with the parameter accounting of
-  ``ArchConfig.layer_param_count``, ``active_layer_param_count`` and
-  ``active_param_count`` (``src/repro_torch/models/common.py:110-182``):
-  6 x N_active x tokens, N_active without the embedding but with the LM
-  head, plus the attention context FLOPs of every attention layer.
-  Recomputed FLOPs are not counted.
 * :func:`k1_work`, :func:`k2_work`: ``_k1_work``, ``_k2_work`` and
   ``_pairs`` (``src/repro_torch/analysis/roofline.py:183-202``), on shapes
   instead of tensors: the operations and the bytes of each input read once
   and each output written once.
+* :func:`mean_over_calls`: the mean of a bound over a model's attention
+  calls.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 #: dense bf16 tensor-core peak of one H100 SXM (NVIDIA H100 data sheet, 700 W)
@@ -39,62 +37,6 @@ def head_dim(c: dict) -> int:
 
 def padded_vocab(c: dict, multiple: int = 16) -> int:
     return int(math.ceil(c["vocab_size"] / multiple) * multiple)
-
-
-def pattern(c: dict) -> list[str]:
-    """Layer kinds in order: ``attn`` for a dense decoder; a MoE config's
-    ``first_dense`` leading ``dense`` layers, then ``moe``."""
-    n = c["num_layers"]
-    moe = c.get("moe")
-    if moe is None:
-        return ["attn"] * n
-    k = moe["first_dense"]
-    return ["dense"] * min(k, n) + ["moe"] * max(n - k, 0)
-
-
-def _glu(c: dict) -> int:
-    return 3 if c["act"] in ("swiglu", "geglu") else 2
-
-
-def _attn_params(c: dict) -> int:
-    d, hd = c["d_model"], head_dim(c)
-    bias = ((c["num_heads"] + 2 * c["num_kv_heads"]) * hd
-            if c.get("qkv_bias") else 0)
-    return (d * c["num_heads"] * hd + 2 * d * c["num_kv_heads"] * hd
-            + c["num_heads"] * hd * d + bias)
-
-
-def active_layer_params(c: dict, kind: str) -> int:
-    """Parameters a token touches in one layer of ``kind``."""
-    d, glu = c["d_model"], _glu(c)
-    if kind == "attn":
-        return _attn_params(c) + glu * d * c["d_ff"] + 2 * d
-    moe = c["moe"]
-    if kind == "dense":
-        return _attn_params(c) + glu * d * moe["dense_d_ff"] + 2 * d
-    if kind == "moe":
-        experts = moe["top_k"] + moe["num_shared"]
-        return (_attn_params(c) + experts * glu * d * c["d_ff"]
-                + d * moe["num_experts"] + 2 * d)
-    raise ValueError(kind)
-
-
-def active_params(c: dict) -> int:
-    """N_active: every layer's active parameters, the final norm and the LM
-    head (``padded_vocab x d``); the input embedding is a lookup."""
-    n = sum(active_layer_params(c, k) for k in pattern(c)) + c["d_model"]
-    return n + padded_vocab(c) * c["d_model"]
-
-
-def model_flops(c: dict, rows: int, seq: int) -> float:
-    """Training FLOPs of one step over ``rows`` sequences of ``seq`` tokens:
-    ``6 N_active D`` plus causal attention's ``6 x rows x seq x layers x
-    seq/2 x 2 x heads x head_dim``."""
-    tokens = rows * seq
-    attn_layers = len(pattern(c))
-    attn = (6 * rows * seq * attn_layers * (seq / 2) * 2 * c["num_heads"]
-            * head_dim(c))
-    return 6 * active_params(c) * tokens + attn
 
 
 def causal_pairs(sq: int, sk: int, causal: bool = True,
@@ -131,3 +73,14 @@ def bound_seconds(flops: float, nbytes: float,
     """The least time one H100 could take for work in ``dtype``: the
     larger of the two terms."""
     return max(flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S)
+
+
+def mean_over_calls(calls, bound) -> float:
+    """The mean of ``bound(window, causal)`` over ``calls``, one ``(window,
+    causal)`` per attention layer: every layer runs equally often in a
+    step.  Each distinct call is weighted by its share of the layers, so
+    that a model of one kind of layer reads that kind's bound exactly."""
+    counts = collections.Counter(calls)
+    n = sum(counts.values())
+    return sum(k / n * bound(window, causal)
+               for (window, causal), k in counts.items())
